@@ -12,6 +12,10 @@ and one device, with these engines:
   torch-cpu  TorchEngine on the CPU: the kernels' plain PyTorch versions;
   oracle     the reference's scalar host engine, barcode by barcode.
 
+TorchEngine seeds on the host unless ARACHNE_DEVICE_SEEDING=1, which moves
+SMEM seeding onto its device (kernels S1 and S3 on the GPU); any value but
+"0" or "1" is an error.
+
 ``index``, ``simulate`` and ``evaluate`` call the same host library
 functions as the reference's CLI, which cannot run without JAX.
 """
@@ -241,7 +245,8 @@ def main(argv=None):
     al.add_argument(
         "--engine", choices=sorted(ENGINES), default="cuda",
         help="cuda = kernels on the GPU (raises without one); torch-cpu = "
-        "their plain PyTorch versions on the CPU; oracle = scalar host engine",
+        "their plain PyTorch versions on the CPU; oracle = scalar host engine. "
+        "ARACHNE_DEVICE_SEEDING=1 seeds on the engine's device too",
     )
     al.add_argument("output")
     al.add_argument("reference")

@@ -31,6 +31,40 @@ def resolve_device(name: Union[str, torch.device]) -> torch.device:
     return dev
 
 
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call of ``fn`` over ``reps`` calls on the
+    current CUDA device, after one warm call, with CUDA events around the
+    whole run."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, reps: int) -> Optional[float]:
+    """Mean milliseconds of device time per call of ``fn``, as
+    torch.profiler reports the kernels' own time, after one warm call; None
+    if the profiler saw no device time.  Unlike ``cuda_ms`` it leaves out
+    the gaps in which the card waits for the host to launch the next
+    kernel, which dominate a run of small launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages())
+    return us / reps / 1e3 if us > 0 else None
+
+
 def _first_line(cmd) -> Optional[str]:
     if shutil.which(cmd[0]) is None:
         return None

@@ -3,10 +3,12 @@ seed extension run in device waves.
 
 A copy of the reference's arachne_tpu/ops/batch.py (``batch_align_single``
 and its helpers; that module cannot be imported without JAX) bound to the
-port's ``BatchExtender``, with host seeding only:
+port's ``BatchExtender``:
 
-  1. host: SMEM seeding (the native C++ collector when it loads), chaining
-     and filtering per read;
+  1. SMEM seeding, on the device (``fm_seed.collect_seeds_device``, kernels
+     S1 and S3) when given the index's device tables, else on the host (the
+     native C++ collector when it loads); then host chaining and filtering
+     per read;
   2. wave 1: every seed's LEFT extension at the base band, deduplicated by
      content; rounds 2-4: the doubled-band retries (bwamem.c:723-733) and
      the RIGHT extensions whose h0 the left result fixes;
@@ -26,6 +28,8 @@ from arachne_tpu.config import MemOptions
 from arachne_tpu.index.fmindex import FMIndex
 from arachne_tpu.runtime.timers import TIMERS
 
+from .fm_rank import DeviceFMIndex
+from .fm_seed import collect_seeds_device
 from .sw_extend import BatchExtender
 
 
@@ -75,22 +79,29 @@ def batch_align_single(
     reads: List[np.ndarray],
     extender_batch: BatchExtender,
     mat: Optional[np.ndarray] = None,
+    dfm: Optional[DeviceFMIndex] = None,
 ) -> List[List[AlnReg]]:
-    """mem_align1_core over a batch of reads with device-batched extension."""
+    """mem_align1_core over a batch of reads with device-batched extension.
+
+    With ``dfm`` (the index's DeviceFMIndex) seeding runs on its device too."""
     if mat is None:
         mat = opt.scoring_matrix()
-    from arachne_tpu.align.smem_native import smem_available
+    if dfm is not None:
+        with TIMERS.stage("seed.device"):
+            all_mems = collect_seeds_device(reads, opt, dfm)
+    else:
+        from arachne_tpu.align.smem_native import smem_available
 
-    with TIMERS.stage("seed.host"):
-        if smem_available():
-            # C++ three-pass collector: exact scalar output, releases the GIL
-            from arachne_tpu.align.smem_native import collect_seeds_native
+        with TIMERS.stage("seed.host"):
+            if smem_available():
+                # C++ three-pass collector: exact scalar output, releases the GIL
+                from arachne_tpu.align.smem_native import collect_seeds_native
 
-            all_mems = collect_seeds_native(idx, reads, opt)
-        else:
-            from arachne_tpu.align.smem_dense import collect_seeds_dense
+                all_mems = collect_seeds_native(idx, reads, opt)
+            else:
+                from arachne_tpu.align.smem_dense import collect_seeds_dense
 
-            all_mems = collect_seeds_dense(idx, reads, opt)
+                all_mems = collect_seeds_dense(idx, reads, opt)
     per_read_chains: List[List[Chain]] = []
     seed_probs: List[_SeedProblems] = []
     with TIMERS.stage("chain.host"):

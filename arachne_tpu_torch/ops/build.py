@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (nvcc + ctypes).
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, at first use, under
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``, all
+at once, and linked into one shared library with a plain C interface, at
+first use, under
 ``build/arachne_tpu_torch/<hash of sources and flags>/`` at the root of the
 checkout, and loaded with ``ctypes``.  PyTorch's headers are never
 included, so a build takes seconds rather than the minutes a
@@ -32,7 +33,7 @@ ROOT = os.path.dirname(os.path.dirname(_HERE))
 LIB_NAME = "libarachne_kernels.so"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _lock = threading.Lock()
@@ -43,8 +44,18 @@ BUILD_INFO: Dict[str, object] = {"seconds": None, "path": None, "log": ""}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures of csrc/*.cu: pointers and the stream as void*, ints as int
+_LL = ctypes.c_longlong
+# C signatures of csrc/*.cu: pointers and the stream as void*, ints as int,
+# row coordinates as long long
 _SIGNATURES = {
+    # occ, words, L2, primary, seq_len, wide, ks, n, out, stream
+    "arachne_rank": [_P] * 3 + [_LL, _LL, _I, _P, _LL, _P, _P],
+    # occ, words, L2, primary, seq_len, wide, qs, qlens, pivots0, min_intvs,
+    # single_sweep, R, L, MAXC, MAXS, ws, out, out_n, overflow, stream
+    "arachne_smem_pass": [_P] * 3 + [_LL, _LL, _I] + [_P] * 4 + [_I] * 5 + [_P] * 5,
+    # occ, words, L2, primary, seq_len, wide, qs, qlens, min_seed_len,
+    # max_intv, R, L, MAXS, out, out_n, overflow, stream
+    "arachne_seed_pass3": [_P] * 3 + [_LL, _LL, _I, _P, _P, _LL, _LL] + [_I] * 3 + [_P] * 4,
     # qs, ts, qlens, tlens, ws, h0s, mat, B, qmax, tmax,
     # o_del, e_del, o_ins, e_ins, zdrop, out, stream
     "arachne_extend": [_P] * 7 + [_I] * 8 + [_P, _P],
@@ -76,21 +87,44 @@ def build_dir() -> str:
     return os.path.join(ROOT, "build", "arachne_tpu_torch", h.hexdigest()[:16])
 
 
+def _run(cmds: List[List[str]]) -> None:
+    """Run the commands concurrently, appending their output to the build
+    log; raise if any fails."""
+    procs = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for cmd in cmds
+    ]
+    log, failed = [], []
+    for cmd, proc in procs:
+        out = proc.communicate()[0]
+        log.append(out)
+        if proc.returncode != 0:
+            failed.append(f"rc {proc.returncode}: {' '.join(cmd)}\n{out}")
+    BUILD_INFO["log"] = str(BUILD_INFO["log"]) + "".join(log)
+    if failed:
+        raise RuntimeError("nvcc failed (" + "\n".join(failed) + ")")
+
+
 def _compile(lib_path: str) -> None:
+    """One nvcc per source, all started together, then one link."""
     nvcc = nvcc_path()
     if nvcc is None:
         raise RuntimeError("nvcc not found: cannot build the CUDA kernels")
-    os.makedirs(os.path.dirname(lib_path), exist_ok=True)
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
+    out_dir = os.path.dirname(lib_path)
+    os.makedirs(out_dir, exist_ok=True)
+    tag = f"{os.getpid()}.tmp"
     cu = [p for p in sources() if p.endswith(".cu")]
-    cmd = [nvcc] + NVCC_FLAGS + ["-Xptxas", "-v", "-I", CSRC, "-o", tmp] + cu
+    objs = [os.path.join(out_dir, os.path.basename(p) + f".{tag}.o") for p in cu]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_INFO["log"] = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (rc {proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
-        )
+    BUILD_INFO["log"] = ""
+    _run([
+        [nvcc] + NVCC_FLAGS + ["-Xptxas", "-v", "-I", CSRC, "-c", src, "-o", obj]
+        for src, obj in zip(cu, objs)
+    ])
+    tmp = f"{lib_path}.{tag}"
+    _run([[nvcc] + NVCC_FLAGS[:2] + ["-shared", "-o", tmp] + objs])
+    for obj in objs:
+        os.remove(obj)
     os.replace(tmp, lib_path)
     BUILD_INFO["seconds"] = time.perf_counter() - t0
 

@@ -1,0 +1,72 @@
+"""S1 and S3 launchers: the CUDA seeding state machines (csrc/seed.cu).
+
+S1 replaces arachne_tpu/ops/fm_seed.py::_smem_pass_program (passes 1 and
+2) and S3 replaces ``_pass3_program`` (pass 3); both are XLA while-loops in
+the reference, not Pallas.  The plain PyTorch versions and the CPU/CUDA
+dispatch live in ``fm_seed``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import build
+from .cuda_rank import check_tables
+
+def _check_reads(name, fm, qs, per_read):
+    dev = qs.device
+    wide = check_tables(name, fm, dev)
+    R, L = qs.shape
+    build.require(qs, "qs", torch.int8, (R, L), dev)
+    for key, t in per_read.items():
+        build.require(t, key, torch.int32, (R,), dev)
+    return dev, wide, R, L
+
+
+def _outputs(fm, dev, R, MAXS):
+    out = torch.zeros((R, MAXS, 5), dtype=fm.occ.dtype, device=dev)
+    out_n = torch.empty(R, dtype=fm.occ.dtype, device=dev)
+    overflow = torch.empty(R, dtype=torch.bool, device=dev)
+    return out, out_n, overflow
+
+
+def smem_pass_cuda(fm, qs, qlens, pivots0, min_intvs, single_sweep: bool, MAXC: int, MAXS: int):
+    """Launch S1 on CUDA tensors; returns (out (R, MAXS, 5), out_n (R,),
+    overflow (R,) bool), out and out_n in fm's row dtype."""
+    dev, wide, R, L = _check_reads(
+        "smem_pass_cuda", fm, qs, dict(qlens=qlens, pivots0=pivots0, min_intvs=min_intvs)
+    )
+    if MAXC < 1 or MAXS < 1:
+        raise ValueError(f"smem_pass_cuda: MAXC {MAXC} / MAXS {MAXS} below 1")
+    out, out_n, overflow = _outputs(fm, dev, R, MAXS)
+    # curr, prev (MAXC x 4 each) and the sweep's SMEMs (MAXS x 5) per read
+    ws = torch.empty(R * (8 * MAXC + 5 * MAXS), dtype=fm.occ.dtype, device=dev)
+    if R:
+        build.launch(
+            smem_pass_cuda, "arachne_smem_pass", dev,
+            fm.occ.data_ptr(), fm.words.data_ptr(), fm.L2.data_ptr(), fm.primary,
+            fm.seq_len, wide, qs.data_ptr(), qlens.data_ptr(), pivots0.data_ptr(),
+            min_intvs.data_ptr(), int(single_sweep), R, L, MAXC, MAXS, ws.data_ptr(),
+            out.data_ptr(), out_n.data_ptr(), overflow.data_ptr(),
+        )
+    return out, out_n, overflow
+
+
+def pass3_cuda(fm, qs, qlens, min_seed_len: int, max_intv: int, MAXS: int):
+    """Launch S3 on CUDA tensors; returns (out, out_n, overflow) as S1."""
+    dev, wide, R, L = _check_reads("pass3_cuda", fm, qs, dict(qlens=qlens))
+    if MAXS < 1:
+        raise ValueError(f"pass3_cuda: MAXS {MAXS} < 1")
+    out, out_n, overflow = _outputs(fm, dev, R, MAXS)
+    if R:
+        build.launch(
+            pass3_cuda, "arachne_seed_pass3", dev,
+            fm.occ.data_ptr(), fm.words.data_ptr(), fm.L2.data_ptr(), fm.primary,
+            fm.seq_len, wide, qs.data_ptr(), qlens.data_ptr(), min_seed_len, max_intv,
+            R, L, MAXS, out.data_ptr(), out_n.data_ptr(), overflow.data_ptr(),
+        )
+    return out, out_n, overflow
+
+
+smem_pass_cuda.launches = 0
+pass3_cuda.launches = 0

@@ -1,7 +1,8 @@
 """TorchEngine: barcode-level batched candidate generation on one device.
 
 The port of the reference's TpuEngine (arachne_tpu/ops/engine.py): all
-reads of a superbatch run through host seeding and device-batched
+reads of a superbatch run through seeding (on the host, or on the device
+with kernels S1 and S3 when device seeding is on) and device-batched
 extension (ops.batch, kernel K1), wave-batched mate rescue (ops.sw_local,
 K2) and wave-batched CIGAR finalization (ops.sw_global, K3 + K4).  Output
 is identical to the oracle engine: every sequential decision (rescue skip
@@ -12,7 +13,9 @@ workflow through ``align_pairs`` / ``reg2aln_batch``.
 
 from __future__ import annotations
 
+import os
 import threading
+import weakref
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -37,6 +40,8 @@ from arachne_tpu.runtime.timers import TIMERS
 
 from ..device import resolve_device
 from .batch import batch_align_single
+from .fm_rank import DeviceFMIndex, occ4_device
+from .fm_seed import pass3, seed_buffers, smem_pass
 from .params import kernel_params
 from .sw_extend import BatchExtender, extend_batch
 from .sw_global import BatchGlobal, global_score, global_z, traceback
@@ -44,6 +49,51 @@ from .sw_local import NEVER, BatchLocalSW, local_sw_full
 
 _warm_lock = threading.Lock()
 _warmed: set = set()
+
+# the rank tables of each index on each device, uploaded once however many
+# engines (one per worker thread) use them
+_tables_lock = threading.Lock()
+_tables: "weakref.WeakKeyDictionary[FMIndex, Dict[torch.device, DeviceFMIndex]]" = (
+    weakref.WeakKeyDictionary()
+)
+
+
+def resolve_device_seeding(device_seeding: Optional[bool] = None) -> bool:
+    """Seed on the device?  An explicit argument wins; else the environment
+    variable ARACHNE_DEVICE_SEEDING, "1" or "0", where any other value
+    raises; else no: host seeding on every device."""
+    if device_seeding is not None:
+        return bool(device_seeding)
+    env = os.environ.get("ARACHNE_DEVICE_SEEDING")
+    if env is None:
+        return False
+    if env not in ("0", "1"):
+        raise ValueError(f"ARACHNE_DEVICE_SEEDING={env!r}: expected '0' or '1'")
+    return env == "1"
+
+
+def device_tables(idx: FMIndex, device: torch.device) -> DeviceFMIndex:
+    """The index's rank tables on ``device``, uploaded on the first call
+    for that (index, device).  Raises if they would not fit the card's free
+    memory: there is no sharded mode, and no silent switch to host
+    seeding."""
+    device = torch.device(device)
+    with _tables_lock:
+        per_device = _tables.setdefault(idx, {})
+        dfm = per_device.get(device)
+        if dfm is None:
+            wide = DeviceFMIndex.is_wide(idx)
+            if device.type == "cuda":
+                need = DeviceFMIndex.table_bytes(idx, wide)
+                free, _ = torch.cuda.mem_get_info(device)
+                if need > free:
+                    raise RuntimeError(
+                        f"device seeding: the index's rank tables need {need} bytes, "
+                        f"{device} has {free} free"
+                    )
+            dfm = DeviceFMIndex.from_host(idx, device, wide)
+            per_device[device] = dfm
+        return dfm
 
 
 def warmup(device: torch.device) -> None:
@@ -70,14 +120,28 @@ def warmup(device: torch.device) -> None:
         global_score(qs, ts, ql, tl, one, p.mat, **p.gaps())
         _, z = global_z(qs, ts, ql, tl, one, p.mat, **p.gaps())
         traceback(z, ql, tl, one, max_steps=96)
+        # a one-block table of As and one read of 32 As
+        fm = DeviceFMIndex(
+            occ=torch.zeros((2, 4), dtype=torch.int32, device=device),
+            words=torch.zeros(8, dtype=torch.int32, device=device),
+            L2=torch.tensor([0, 128, 128, 128, 128], dtype=torch.int32, device=device),
+            primary=64, seq_len=128, l_pac=64,
+        )
+        occ4_device(fm, ql)
+        smem_pass(fm, qs, ql, one * 0, one, False, seed_buffers(32), seed_buffers(32))
+        pass3(fm, qs, ql, 19, 20, seed_buffers(32))
         torch.cuda.synchronize(device)
         _warmed.add(device)
 
 
 class TorchEngine:
-    """Batched device engine bound to one index, config and device."""
+    """Batched device engine bound to one index, config and device.
 
-    def __init__(self, idx: FMIndex, cfg: ArachneConfig, device="cuda"):
+    ``device_seeding`` as ``resolve_device_seeding`` reads it; when on,
+    seeding runs on the device against the index's shared device tables."""
+
+    def __init__(self, idx: FMIndex, cfg: ArachneConfig, device="cuda",
+                 device_seeding: Optional[bool] = None):
         self.idx = idx
         self.cfg = cfg
         self.opt = cfg.mem
@@ -86,6 +150,9 @@ class TorchEngine:
         self.extender = BatchExtender(cfg.mem, self.device)
         self.local = BatchLocalSW(cfg.mem, self.device)
         self.global_ = BatchGlobal(cfg.mem, self.device)
+        self.dfm = (
+            device_tables(idx, self.device) if resolve_device_seeding(device_seeding) else None
+        )
 
     # ------------------------------------------------------------------
     # batched GoBwaMemMateSW over all pairs of a superbatch
@@ -99,7 +166,9 @@ class TorchEngine:
         for r1, r2 in pairs:
             flat_reads.append(r1)
             flat_reads.append(r2)
-        regs_flat = batch_align_single(idx, opt, flat_reads, self.extender, self.mat)
+        regs_flat = batch_align_single(
+            idx, opt, flat_reads, self.extender, self.mat, dfm=self.dfm
+        )
         regs1 = [regs_flat[2 * i] for i in range(len(pairs))]
         regs2 = [regs_flat[2 * i + 1] for i in range(len(pairs))]
         best1 = [max((r.score for r in rs), default=0) for rs in regs1]

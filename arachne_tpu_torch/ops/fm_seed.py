@@ -1,0 +1,434 @@
+"""Device-side SMEM seeding: the three-pass seed collection on the device.
+
+The port of arachne_tpu/ops/fm_seed.py.  Pass 1 follows each read's pivot
+chain with bwt_smem1a sweeps, pass 2 re-seeds long SMEMs with one sweep per
+(pivot, min_intv) job, pass 3 is bwt_seed_strategy1 (bwamem.c:114-162).
+``smem_pass_torch`` and ``pass3_torch`` are the plain versions: the
+reference's lockstep while-loops translated op for op, where every read
+advances one step per iteration.  ``smem_pass`` and ``pass3`` are the
+wrappers of kernels S1 and S3 (csrc/seed.cu), which run one read per thread
+and must write exactly what the lockstep versions write.
+
+Fixed-size buffers replace the reference's growable vectors:
+  * MAXC: carried intervals per sweep (curr/prev, bwt.c:304-345);
+  * MAXS: SMEMs recorded per read per pass.
+A read that overflows one is flagged.  ``collect_seeds_device`` sizes them
+by ``seed_buffers`` so that no read can overflow; reads that overflow
+smaller buffers a caller asks for are redone on the same device at that
+size, counted in ``overflow_redos`` and timed as the stage
+``seed.device.redo``.  Its output is always the scalar collector's.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Iterator, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from arachne_tpu.align.smem import SMEM
+from arachne_tpu.config import MemOptions
+from arachne_tpu.runtime.timers import TIMERS
+
+from .cuda_seed import pass3_cuda, smem_pass_cuda
+from .fm_rank import DeviceFMIndex, extend_torch
+
+# reads redone at ``seed_buffers`` size after overflowing a caller's
+# smaller buffers (process-wide; worker threads seed concurrently)
+overflow_redos = 0
+_redo_lock = threading.Lock()
+
+# phases
+PH_PIVOT = 0   # looking for the next pivot (skip Ns / check end)
+PH_FWD = 1     # forward sweep
+PH_BACK = 2    # backward sweep
+PH_DONE = 3
+
+
+def _pick(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """a[r, idx[r]] for every row r."""
+    return a.gather(1, idx.long()[:, None])[:, 0]
+
+
+def _codes(qsT: torch.Tensor, qlens: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """q[x] per read, 4 (N) outside [0, qlen)."""
+    L = qsT.shape[1]
+    code = _pick(qsT, x.clamp(0, L - 1))
+    return torch.where((x >= 0) & (x < qlens), code, 4)
+
+
+def _put(buf: torch.Tensor, slot: torch.Tensor, do: torch.Tensor, item: torch.Tensor):
+    """buf[r, slot[r]] = item[r] where do[r] (a one-hot masked write)."""
+    cols = torch.arange(buf.shape[1], device=buf.device)
+    upd = (cols[None, :] == slot[:, None]) & do[:, None]
+    return torch.where(upd[:, :, None], item[:, None, :], buf)
+
+
+def smem_pass_torch(fm: DeviceFMIndex, qs, qlens, pivots0, min_intvs, single_sweep: bool,
+                    MAXC: int, MAXS: int):
+    """Plain version of S1 (the reference's _smem_pass_program): qs (R, L)
+    int8 codes, qlens / pivots0 / min_intvs (R,).  Returns out (R, MAXS, 5)
+    of (k, l, s, qb, qe), out_n (R,) and overflow (R,) bool."""
+    I = fm.idt
+    dev = qs.device
+    R, L = qs.shape
+    qsT = qs.to(I)
+    qlens = qlens.to(I)
+    min_intvs = min_intvs.to(I)
+    L2 = fm.L2
+    arC = torch.arange(MAXC, device=dev)
+
+    phase = torch.full((R,), PH_PIVOT, dtype=I, device=dev)
+    x = pivots0.to(I)
+    i = torch.zeros(R, dtype=I, device=dev)
+    ik = torch.zeros((R, 4), dtype=I, device=dev)            # k, l, s, info
+    curr = torch.zeros((R, MAXC, 4), dtype=I, device=dev)
+    curr_n = torch.zeros(R, dtype=I, device=dev)
+    prev = torch.zeros((R, MAXC, 4), dtype=I, device=dev)
+    prev_n = torch.zeros(R, dtype=I, device=dev)
+    sweep_mem = torch.zeros((R, MAXS, 5), dtype=I, device=dev)  # qb descending
+    sweep_n = torch.zeros(R, dtype=I, device=dev)
+    out = torch.zeros((R, MAXS, 5), dtype=I, device=dev)
+    out_n = torch.zeros(R, dtype=I, device=dev)
+    overflow = torch.zeros(R, dtype=torch.bool, device=dev)
+    pivot_keep = pivots0.to(I)
+
+    def push_curr(curr, curr_n, overflow, do, item):
+        ovf = do & (curr_n >= MAXC)
+        ok = do & ~ovf
+        curr = _put(curr, curr_n.clamp(0, MAXC - 1), ok, item)
+        return curr, torch.where(ok, curr_n + 1, curr_n), overflow | ovf
+
+    steps = 0
+    while steps < 16 * L + 64 and bool((phase != PH_DONE).any()):
+        in_pivot = phase == PH_PIVOT
+        pivot_keep = torch.where(in_pivot, x, pivot_keep)
+
+        # ---- PH_PIVOT: find the next pivot / finish the read ----
+        c_at_x = _codes(qsT, qlens, x)
+        past_end = x >= qlens
+        is_n = (c_at_x >= 4) & ~past_end
+        phase = torch.where(in_pivot & past_end, PH_DONE, phase)
+        x = torch.where(in_pivot & is_n, x + 1, x)
+        ready = in_pivot & ~past_end & ~is_n
+        c = _codes(qsT, qlens, x).clamp(0, 3).long()
+        ik0 = torch.stack([L2[c] + 1, L2[3 - c] + 1, L2[c + 1] - L2[c], x + 1], dim=1)
+        ik = torch.where(ready[:, None], ik0, ik)
+        i = torch.where(ready, x + 1, i)
+        curr_n = torch.where(ready, 0, curr_n)
+        sweep_n = torch.where(ready, 0, sweep_n)
+        phase = torch.where(ready, PH_FWD, phase)
+
+        # ---- PH_FWD: one forward step ----
+        in_fwd = phase == PH_FWD
+        ci = _codes(qsT, qlens, i)
+        terminal = in_fwd & ((i >= qlens) | (ci >= 4))
+        live_f = in_fwd & ~terminal
+        comp = 3 - ci.clamp(0, 3)
+        o0, o1, osz = extend_torch(fm, ik[:, 0], ik[:, 1], ik[:, 2], is_back=False)
+        n0, n1, ns = _pick(o0, comp), _pick(o1, comp), _pick(osz, comp)
+        changed = live_f & (ns != ik[:, 2])
+        curr, curr_n, overflow = push_curr(curr, curr_n, overflow, changed | terminal, ik)
+        too_small = changed & (ns < min_intvs)
+        advance = live_f & ~too_small
+        ik = torch.where(advance[:, None], torch.stack([n0, n1, ns, i + 1], dim=1), ik)
+        i = torch.where(advance, i + 1, i)
+        hit_len = advance & (i >= qlens)   # reached the end: push the final interval
+        curr, curr_n, overflow = push_curr(curr, curr_n, overflow, hit_len, ik)
+        to_back = terminal | too_small | hit_len
+        # prev = curr reversed; the next pivot is the last push's info
+        ret = _pick(curr[:, :, 3], (curr_n - 1).clamp(0, MAXC - 1))
+        rev_idx = (curr_n[:, None] - 1 - arC[None, :]).clamp(0, MAXC - 1)
+        prev_rev = curr.gather(1, rev_idx.long()[:, :, None].expand(R, MAXC, 4))
+        prev = torch.where(to_back[:, None, None], prev_rev, prev)
+        prev_n = torch.where(to_back, curr_n, prev_n)
+        x = torch.where(to_back, ret, x)
+        phase = torch.where(to_back, PH_BACK, phase)
+        i = torch.where(to_back, pivot_keep - 1, i)
+
+        # ---- PH_BACK: one backward step over all carried intervals ----
+        in_back = phase == PH_BACK
+        cb = _codes(qsT, qlens, i)
+        c_ok = in_back & (i >= 0) & (cb < 4)
+        # items past every read's prev_n change nothing: extend and scan the
+        # first m only
+        m = min(MAXC, int(torch.where(in_back, prev_n, 0).max()))
+        b0, b1, bs = extend_torch(
+            fm, prev[:, :m, 0].reshape(-1), prev[:, :m, 1].reshape(-1),
+            prev[:, :m, 2].reshape(-1).clamp_min(0), is_back=True,
+        )
+        sel = cb.clamp(0, 3).long()[:, None].expand(R, m).reshape(-1, 1)
+        nb0 = b0.gather(1, sel).reshape(R, m)
+        nb1 = b1.gather(1, sel).reshape(R, m)
+        nbs = bs.gather(1, sel).reshape(R, m)
+
+        # the items in order, as the reference's scan over the MAXC axis
+        ncurr = torch.zeros(R, dtype=I, device=dev)
+        last_s = torch.full((R,), -1, dtype=I, device=dev)
+        new_curr = torch.zeros((R, MAXC, 4), dtype=I, device=dev)
+        mem, memn = sweep_mem, sweep_n
+        ovf = overflow
+        for j in range(m):
+            valid = in_back & (j < prev_n)
+            pj = prev[:, j]
+            oks = nbs[:, j]
+            keep = ~c_ok | (oks < min_intvs)
+            # an SMEM ends here unless curr is alive or a longer one covers it
+            last_qb = _pick(mem[:, :, 3], (memn - 1).clamp(0, MAXS - 1))
+            no_contain = (memn == 0) | (i + 1 < last_qb)
+            do_mem = valid & keep & (ncurr == 0) & no_contain
+            memovf = do_mem & (memn >= MAXS)
+            mem_item = torch.stack([pj[:, 0], pj[:, 1], pj[:, 2], i + 1, pj[:, 3]], dim=1)
+            mem = _put(mem, memn.clamp(0, MAXS - 1), do_mem & ~memovf, mem_item)
+            memn = torch.where(do_mem & ~memovf, memn + 1, memn)
+            # the extension kept the interval alive with a new size
+            do_curr = valid & ~keep & ((ncurr == 0) | (oks != last_s))
+            currovf = do_curr & (ncurr >= MAXC)
+            curr_item = torch.stack([nb0[:, j], nb1[:, j], oks, pj[:, 3]], dim=1)
+            new_curr = _put(new_curr, ncurr.clamp(0, MAXC - 1), do_curr & ~currovf, curr_item)
+            ncurr = torch.where(do_curr & ~currovf, ncurr + 1, ncurr)
+            last_s = torch.where(do_curr, oks, last_s)
+            ovf = ovf | memovf | currovf
+        sweep_mem = torch.where(in_back[:, None, None], mem, sweep_mem)
+        sweep_n = torch.where(in_back, memn, sweep_n)
+        overflow = ovf
+
+        sweep_done = in_back & ((ncurr == 0) | (i - 1 < -1))
+        cont = in_back & ~sweep_done
+        prev = torch.where(cont[:, None, None], new_curr, prev)
+        prev_n = torch.where(cont, ncurr, prev_n)
+        i = torch.where(cont, i - 1, i)
+
+        # sweep finished: out[n_out + t] = sweep_mem[sn - 1 - t] while it fits
+        arS = torch.arange(MAXS, device=dev)
+        src = (sweep_n[:, None] - 1 - arS[None, :]).clamp(0, MAXS - 1)
+        rev = sweep_mem.gather(1, src.long()[:, :, None].expand(R, MAXS, 5))
+        dst = out_n[:, None] + arS[None, :]
+        can = sweep_done[:, None] & (arS[None, :] < sweep_n[:, None]) & (dst < MAXS)
+        # gather the source t of each destination d (t = d - n_out)
+        t_of_d = (arS[None, :] - out_n[:, None]).clamp(0, MAXS - 1)
+        written = can.gather(1, t_of_d.long()) & (arS[None, :] >= out_n[:, None])
+        vals = rev.gather(1, t_of_d.long()[:, :, None].expand(R, MAXS, 5))
+        out = torch.where(written[:, :, None], vals, out)
+        overflow = overflow | (sweep_done & (out_n + sweep_n > MAXS))
+        out_n = torch.where(sweep_done, torch.clamp(out_n + sweep_n, max=MAXS), out_n)
+        phase = torch.where(sweep_done, PH_DONE if single_sweep else PH_PIVOT, phase)
+        steps += 1
+    return out, out_n, overflow
+
+
+def pass3_torch(fm: DeviceFMIndex, qs, qlens, min_seed_len: int, max_intv: int, MAXS: int):
+    """Plain version of S3 (the reference's _pass3_program, the
+    bwt_seed_strategy1 pivot chains of bwt.c:358-379, in lockstep)."""
+    I = fm.idt
+    dev = qs.device
+    R, L = qs.shape
+    qsT = qs.to(I)
+    qlens = qlens.to(I)
+    L2 = fm.L2
+    x = torch.zeros(R, dtype=I, device=dev)
+    i = torch.zeros(R, dtype=I, device=dev)
+    ik = torch.zeros((R, 3), dtype=I, device=dev)
+    scanning = torch.zeros(R, dtype=torch.bool, device=dev)
+    done = torch.zeros(R, dtype=torch.bool, device=dev)
+    out = torch.zeros((R, MAXS, 5), dtype=I, device=dev)
+    out_n = torch.zeros(R, dtype=I, device=dev)
+    overflow = torch.zeros(R, dtype=torch.bool, device=dev)
+
+    steps = 0
+    while steps < 8 * L + 64 and not bool(done.all()):
+        # idle reads look for a pivot
+        idle = ~scanning & ~done
+        cx = _codes(qsT, qlens, x)
+        past = x >= qlens
+        done = done | (idle & past)
+        x = torch.where(idle & ~past & (cx >= 4), x + 1, x)
+        start = idle & ~past & (cx < 4)
+        c = cx.clamp(0, 3).long()
+        ik0 = torch.stack([L2[c] + 1, L2[3 - c] + 1, L2[c + 1] - L2[c]], dim=1)
+        ik = torch.where(start[:, None], ik0, ik)
+        i = torch.where(start, x + 1, i)
+        scanning = scanning | start
+
+        # scanning reads take one forward step
+        ci = _codes(qsT, qlens, i)
+        at_end = scanning & (i >= qlens)
+        hit_n = scanning & ~at_end & (ci >= 4)
+        live = scanning & ~at_end & ~hit_n
+        comp = 3 - ci.clamp(0, 3)
+        o0, o1, osz = extend_torch(fm, ik[:, 0], ik[:, 1], ik[:, 2], is_back=False)
+        n0, n1, ns = _pick(o0, comp), _pick(o1, comp), _pick(osz, comp)
+        emit = live & (ns < max_intv) & (i - x >= min_seed_len)
+        do_push = emit & (ns > 0)
+        ovf = do_push & (out_n >= MAXS)
+        item = torch.stack([n0, n1, ns, x, i + 1], dim=1)
+        out = _put(out, out_n.clamp(0, MAXS - 1), do_push & ~ovf, item)
+        out_n = torch.where(do_push & ~ovf, out_n + 1, out_n)
+        overflow = overflow | ovf
+        adv = live & ~emit
+        ik = torch.where(adv[:, None], torch.stack([n0, n1, ns], dim=1), ik)
+        i = torch.where(adv, i + 1, i)
+        # stop on emit / N / end of read: the next pivot is i + 1 (or qlen)
+        stop = at_end | hit_n | emit
+        x = torch.where(stop, torch.where(at_end, qlens, i + 1), x)
+        scanning = scanning & ~stop
+        steps += 1
+    return out, out_n, overflow
+
+
+def smem_pass(fm: DeviceFMIndex, qs, qlens, pivots0, min_intvs, single_sweep: bool,
+              MAXC: int, MAXS: int):
+    """S1 wrapper: plain version for CPU tensors, the kernel for CUDA."""
+    if qs.device.type == "cpu":
+        return smem_pass_torch(fm, qs, qlens, pivots0, min_intvs, single_sweep, MAXC, MAXS)
+    return smem_pass_cuda(fm, qs, qlens, pivots0, min_intvs, single_sweep, MAXC, MAXS)
+
+
+def pass3(fm: DeviceFMIndex, qs, qlens, min_seed_len: int, max_intv: int, MAXS: int):
+    """S3 wrapper: plain version for CPU tensors, the kernel for CUDA."""
+    if qs.device.type == "cpu":
+        return pass3_torch(fm, qs, qlens, min_seed_len, max_intv, MAXS)
+    return pass3_cuda(fm, qs, qlens, min_seed_len, max_intv, MAXS)
+
+
+def pad_reads(reads: List[np.ndarray], device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """qs (R, L) int8 codes padded with N and qlens (R,) int32 on
+    ``device``: R a multiple of 64, L a multiple of 64 and at least 64.  L
+    sets the step caps (16 * L + 64, 8 * L + 64), so it is padded as the
+    reference pads it."""
+    n = len(reads)
+    R = -(-max(n, 1) // 64) * 64
+    L = max(64, -(-max((len(r) for r in reads), default=0) // 64) * 64)
+    qs = np.full((R, L), 4, np.int8)
+    qlens = np.zeros(R, np.int32)
+    for r, read in enumerate(reads):
+        qs[r, : len(read)] = read
+        qlens[r] = len(read)
+    return torch.from_numpy(qs).to(device), torch.from_numpy(qlens).to(device)
+
+
+def seed_buffers(L: int) -> int:
+    """MAXC and MAXS that no read of padded width L can overflow.  A sweep
+    pushes at most one interval per forward step, plus the final one (at
+    most L + 1), and a backward step keeps at most as many.  A read's SMEMs
+    (of one sweep and of all of them) and its pass-3 seeds each have
+    distinct ends in 1..L."""
+    return L + 2
+
+
+def _rows(out: np.ndarray, cnt: np.ndarray, r: int) -> Iterator[SMEM]:
+    for t in range(int(cnt[r])):
+        k, l, s, qb, qe = (int(v) for v in out[r, t])
+        yield SMEM(k=k, l=l, s=s, qb=qb, qe=qe)
+
+
+def pass1_seeds(out1, n1, overflow, n: int, opt: MemOptions):
+    """Pass 1's SMEMs of at least min_seed_len per read, and each read's
+    pass-2 jobs (pivot, min_intv) for the long ones that occur rarely
+    enough (bwamem.c:130-145)."""
+    split_len = int(opt.min_seed_len * opt.split_factor + 0.499)
+    seeds: List[List[SMEM]] = []
+    jobs: List[List[Tuple[int, int]]] = []
+    for r in range(n):
+        lst, jl = [], []
+        if not overflow[r]:
+            for m in _rows(out1, n1, r):
+                if m.qe - m.qb >= opt.min_seed_len:
+                    lst.append(m)
+                    if m.length >= split_len and m.s <= opt.split_width:
+                        jl.append(((m.qb + m.qe) >> 1, m.s + 1))
+        seeds.append(lst)
+        jobs.append(jl)
+    return seeds, jobs
+
+
+def pass2_round(jobs: List[List[Tuple[int, int]]], qlens: np.ndarray, round_i: int):
+    """Pivots and min_intvs (R,) int32 of one pass-2 round: each read's
+    job of that rank; a read without one gets pivot qlen, so it is done at
+    once."""
+    R = len(qlens)
+    pivots = qlens.astype(np.int32).copy()
+    minis = np.ones(R, np.int32)
+    for r, jl in enumerate(jobs):
+        if round_i < len(jl):
+            pivots[r], minis[r] = jl[round_i]
+    return pivots, minis
+
+
+def collect_seeds_device(
+    reads: List[np.ndarray],
+    opt: MemOptions,
+    dfm: DeviceFMIndex,
+    MAXC: Optional[int] = None,
+    MAXS: Optional[int] = None,
+) -> List[List[SMEM]]:
+    """Three-pass seed collection with the sweeps on dfm's device.
+
+    Identical per-read output to align.smem.collect_seeds.  MAXC and MAXS
+    default to ``seed_buffers`` of the padded width, which no read can
+    overflow; reads that overflow smaller ones are redone on the same
+    device at that size and counted in ``overflow_redos``."""
+    global overflow_redos
+    n = len(reads)
+    if n == 0:
+        return []
+    dev = dfm.device
+    qs, qlens = pad_reads(reads, dev)
+    R, L = qs.shape
+    sized = MAXC is None and MAXS is None
+    MAXC = seed_buffers(L) if MAXC is None else MAXC
+    MAXS = seed_buffers(L) if MAXS is None else MAXS
+    qlens_h = qlens.cpu().numpy()
+
+    def fetch(res):
+        out, cnt, ovf = res
+        used = int(cnt.max())   # copy only the slots some read filled
+        return out[:, :used].cpu().numpy(), cnt.cpu().numpy(), ovf.cpu().numpy()
+
+    # ---- pass 1 ----
+    ones = torch.ones(R, dtype=torch.int32, device=dev)
+    out1, n1, overflow = fetch(smem_pass(
+        dfm, qs, qlens, torch.zeros(R, dtype=torch.int32, device=dev), ones,
+        False, MAXC, MAXS))
+    overflow = overflow.copy()
+    pass1, jobs = pass1_seeds(out1, n1, overflow, n, opt)
+
+    # ---- pass 2: one single-sweep round per job rank ----
+    pass2: List[List[SMEM]] = [[] for _ in range(n)]
+    for round_i in range(max((len(j) for j in jobs), default=0)):
+        pivots, minis = pass2_round(jobs, qlens_h, round_i)
+        o2, c2, ov2 = fetch(smem_pass(
+            dfm, qs, qlens, torch.from_numpy(pivots).to(dev),
+            torch.from_numpy(minis).to(dev), True, MAXC, MAXS))
+        overflow |= ov2
+        for r in range(n):
+            if round_i < len(jobs[r]) and not overflow[r]:
+                pass2[r].extend(m for m in _rows(o2, c2, r) if m.qe - m.qb >= opt.min_seed_len)
+
+    # ---- pass 3 ----
+    pass3_: List[List[SMEM]] = [[] for _ in range(n)]
+    if opt.max_mem_intv > 0:
+        o3, c3, ov3 = fetch(pass3(dfm, qs, qlens, opt.min_seed_len, opt.max_mem_intv, MAXS))
+        overflow |= ov3
+        for r in range(n):
+            if not overflow[r]:
+                pass3_[r].extend(_rows(o3, c3, r))
+
+    out: List[List[SMEM]] = []
+    for r in range(n):
+        mems = pass1[r] + pass2[r] + pass3_[r]
+        mems.sort(key=lambda m: (m.qb << 32) | m.qe)
+        out.append(mems)
+    redo = [r for r in range(n) if overflow[r]]
+    if redo:
+        if sized:
+            raise RuntimeError(f"collect_seeds_device: {len(redo)} reads overflowed buffers "
+                               f"of {MAXC} intervals / {MAXS} SMEMs at width {L}")
+        with _redo_lock:
+            overflow_redos += len(redo)
+        with TIMERS.stage("seed.device.redo"):
+            again = collect_seeds_device([reads[r] for r in redo], opt, dfm)
+        for r, mems in zip(redo, again):
+            out[r] = mems
+    return out

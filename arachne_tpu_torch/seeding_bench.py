@@ -1,0 +1,238 @@
+"""Rank-query and seeding throughput of the port on one GPU.
+
+    python -m arachne_tpu_torch.seeding_bench [--index REF.fa.arx.npz] [--reads 4096] \\
+        [--wide-blocks 48400000] [--out seeding.json]
+
+The port of scripts/seeding_microbench.py and the entry point of kernel K5.
+On the given index (by default a 2 Mbp random genome, indexed in a
+temporary directory) and on a synthetic table of GRCh38's size (48.4 M
+blocks of wide int64 tables, about 3.1 GB of random words and counts from
+a seeded generator on the card: seeding's rank gathers land in a table of
+that size, not in the 50 MB L2), it
+
+  * holds K5 to its plain version on 2048 rows, edge rows included
+    (integers: tolerance 0);
+  * times K5 and the plain version at B = 2^14, 2^17 and 2^20 uniformly
+    random rows, with CUDA events and as device time from torch.profiler,
+    in rank queries/s;
+  * on the index only: times seed collection on the same reads (150 bp
+    from the genome, with a few substitutions) through
+    ``collect_seeds_device`` (kernels S1 and S3 and their host glue)
+    against the host C++ collector ``collect_seeds_native``, in reads/s,
+    and splits the device time of one ``collect_seeds_device`` call into
+    S1 (pass 1 and every pass-2 round), S3 and copies; the seeds must be
+    identical read for read.
+
+The reference's tunnel slope timing and its while-loop latency section are
+not ported: they answered a question about the TPU.  The result is one
+JSON object, written to ``--out`` and summarised on standard output.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import tempfile
+import time
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from .device import cuda_ms, device_ms, probe, resolve_device
+from .ops.cuda_seed import pass3_cuda, smem_pass_cuda
+from .ops.fm_rank import DeviceFMIndex, occ4_device, occ4_torch
+from .ops.fm_seed import collect_seeds_device
+
+# GRCh38 forward + reverse, ~6.2e9 rows, in blocks of 128
+GRCH38_BLOCKS = 48_400_000
+BATCHES = (1 << 14, 1 << 17, 1 << 20)
+
+
+def synthetic_table(device, n_blocks: int = GRCH38_BLOCKS, seed: int = 0) -> DeviceFMIndex:
+    """Wide (int64) rank tables of ``n_blocks`` blocks filled with random
+    words and counts from a seeded generator on ``device``.  Ranks over it
+    are meaningless but exactly defined, so K5 and its plain version must
+    still agree."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    seq_len = n_blocks * 128
+    occ = torch.randint(0, seq_len, (n_blocks + 1, 4), dtype=torch.int64, device=device,
+                        generator=g)
+    words = torch.randint(-(1 << 31), 1 << 31, (n_blocks * 8,), dtype=torch.int32,
+                          device=device, generator=g)
+    L2 = torch.tensor([0, seq_len // 4, seq_len // 2, 3 * seq_len // 4, seq_len],
+                      dtype=torch.int64, device=device)
+    return DeviceFMIndex(occ=occ, words=words, L2=L2, primary=seq_len // 3,
+                         seq_len=seq_len, l_pac=seq_len // 2)
+
+
+def parity_rows(fm: DeviceFMIndex, n: int = 2048, seed: int = 1) -> torch.Tensor:
+    """n rows on fm's device: the edge rows (-1, 0, seq_len, and around
+    the primary row and the end), the rest uniform in [-1, seq_len]."""
+    S, P = fm.seq_len, fm.primary
+    edges = [-1, 0, 1, P - 1, P, P + 1, S - 1, S]
+    rng = np.random.default_rng(seed)
+    ks = np.concatenate([edges, rng.integers(-1, S + 1, n - len(edges))])
+    return torch.from_numpy(ks).to(fm.device, fm.idt)
+
+
+def rank_parity(fm: DeviceFMIndex, n: int = 2048) -> int:
+    """K5 against its plain version on ``parity_rows``; raises unless
+    exactly equal, returns the max abs error (0)."""
+    ks = parity_rows(fm, n)
+    got, want = occ4_device(fm, ks), occ4_torch(fm, ks)
+    err = int((got - want).abs().max().item())
+    if err or got.dtype != want.dtype:
+        raise AssertionError(f"K5 differs from its plain version (max abs err {err})")
+    return err
+
+
+def time_rank(fm: DeviceFMIndex, B: int, seed: int = 2) -> Dict[str, float]:
+    """K5 and its plain version on B uniform rows: CUDA events around 20
+    calls (3 for the plain version), and the device time alone from
+    torch.profiler (the events also count the host's launch gaps, which
+    bound small batches)."""
+    g = torch.Generator(device=fm.device)
+    g.manual_seed(seed)
+    ks = torch.randint(0, fm.seq_len, (B,), dtype=fm.idt, device=fm.device, generator=g)
+    kernel, plain = (lambda: occ4_device(fm, ks)), (lambda: occ4_torch(fm, ks))
+    ms, plain_ms = cuda_ms(kernel, 20), cuda_ms(plain, 3)
+    dev_ms, plain_dev_ms = device_ms(kernel, 20), device_ms(plain, 3)
+    return {"B": B, "ms": ms, "plain_ms": plain_ms,
+            "rank_qps": B / ms * 1e3, "plain_rank_qps": B / plain_ms * 1e3,
+            "device_ms": dev_ms, "plain_device_ms": plain_dev_ms,
+            "device_rank_qps": B / dev_ms * 1e3 if dev_ms else None}
+
+
+def sample_reads(fwd: np.ndarray, n: int, length: int = 150, seed: int = 3) -> List[np.ndarray]:
+    """n reads of ``length`` codes from either strand of ``fwd``, each with
+    0-3 substitutions."""
+    rng = np.random.default_rng(seed)
+    reads = []
+    for _ in range(n):
+        pos = int(rng.integers(0, len(fwd) - length))
+        r = fwd[pos : pos + length].copy()
+        at = rng.integers(0, length, int(rng.integers(0, 4)))
+        r[at] = (r[at] + 1) % 4
+        reads.append((3 - r[::-1]).astype(np.uint8) if rng.integers(0, 2) else r)
+    return reads
+
+
+def device_parts_ms(fn) -> Dict[str, float]:
+    """Device milliseconds of one call of ``fn`` from torch.profiler, split
+    into S1 (every pass-1 and pass-2 launch), S3, copies and other device
+    work (the fills of fresh buffers)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    parts = {"s1": 0.0, "s3": 0.0, "copies": 0.0, "other": 0.0}
+    for e in prof.key_averages():
+        key = ("s1" if "smem_pass_kernel" in e.key else "s3" if "pass3_kernel" in e.key
+               else "copies" if "Memcpy" in e.key else "other")
+        parts[key] += e.self_device_time_total / 1e3
+    return parts
+
+
+def seeding_rates(idx, fm: DeviceFMIndex, reads: List[np.ndarray], opt) -> Dict[str, float]:
+    """Seed collection on the card against the host C++ collector on the
+    same reads; raises unless their seeds are identical.  The device time
+    of one ``collect_seeds_device`` call covers every launch it makes (pass
+    1, each pass-2 round, pass 3) and its copies."""
+    from arachne_tpu.align.smem_native import collect_seeds_native, smem_available
+
+    if not smem_available():
+        raise RuntimeError("the native host collector did not load: nothing to compare with")
+    collect_seeds_device(reads[:64], opt, fm)   # warm
+    s1_before, s3_before = smem_pass_cuda.launches, pass3_cuda.launches
+    t0 = time.perf_counter()
+    dev_seeds = collect_seeds_device(reads, opt, fm)
+    t_dev = time.perf_counter() - t0
+    s1_launches = smem_pass_cuda.launches - s1_before
+    s3_launches = pass3_cuda.launches - s3_before
+    parts = device_parts_ms(lambda: collect_seeds_device(reads, opt, fm))
+    t0 = time.perf_counter()
+    host_seeds = collect_seeds_native(idx, reads, opt)
+    t_host = time.perf_counter() - t0
+    bad = [i for i, (a, b) in enumerate(zip(dev_seeds, host_seeds)) if a != b]
+    if bad:
+        raise AssertionError(f"device seeds differ from the native collector's: reads {bad[:10]}")
+    n = len(reads)
+    kernel_ms = parts["s1"] + parts["s3"]
+    return {"reads": n, "s1_launches": s1_launches, "s3_launches": s3_launches,
+            "s1_device_ms": parts["s1"], "s3_device_ms": parts["s3"],
+            "copy_device_ms": parts["copies"], "other_device_ms": parts["other"],
+            "kernel_reads_per_s": n / kernel_ms * 1e3 if kernel_ms else None,
+            "device_s": t_dev, "device_reads_per_s": n / t_dev,
+            "native_s": t_host, "native_reads_per_s": n / t_host}
+
+
+def table_result(name: str, fm: DeviceFMIndex) -> dict:
+    """K5's parity and timings on one table, printed as they come."""
+    row = {"seq_len": fm.seq_len, "wide": fm.idt == torch.int64,
+           "bytes": sum(x.numel() * x.element_size() for x in (fm.occ, fm.words)),
+           "max_abs_err": rank_parity(fm), "batches": []}
+    for B in BATCHES:
+        b = time_rank(fm, B)
+        row["batches"].append(b)
+        print(f"{name:>13} B={B:>8}: K5 {b['ms']:.4f} ms ({b['rank_qps'] / 1e6:.1f} M "
+              f"rank queries/s), device time {b['device_ms']} ms; plain "
+              f"{b['plain_ms']:.4f} ms ({b['plain_rank_qps'] / 1e6:.1f} M/s), device time "
+              f"{b['plain_device_ms']} ms", flush=True)
+    return row
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(prog="python -m arachne_tpu_torch.seeding_bench",
+                                 description=__doc__.split("\n\n")[0])
+    ap.add_argument("--index", help="an .arx.npz index (default: a 2 Mbp random genome)")
+    ap.add_argument("--reads", type=int, default=4096)
+    ap.add_argument("--wide-blocks", type=int, default=GRCH38_BLOCKS,
+                    help="blocks of the synthetic wide table (0: skip it)")
+    ap.add_argument("--out", help="write the JSON result here")
+    args = ap.parse_args(argv)
+
+    from arachne_tpu.config import MemOptions
+    from arachne_tpu.index import FMIndex, build_index_files, load_index, unpack_2bit
+
+    from .measure import write_genome
+
+    dev = resolve_device("cuda")
+    res = {"probe": probe(), "args": vars(args)}
+    work = None
+    try:
+        if args.index is None:
+            work = tempfile.mkdtemp(prefix="seeding_bench_")
+            ref = os.path.join(work, "ref.fa")
+            write_genome(ref, 2_000_000)
+            args.index = build_index_files(ref)
+        idx = FMIndex(*load_index(args.index))
+    finally:
+        if work is not None:
+            shutil.rmtree(work, ignore_errors=True)
+    fm = DeviceFMIndex.from_host(idx, dev)
+    res["tables"] = {"index": table_result("index", fm)}
+    if args.wide_blocks:
+        res["tables"]["grch38_sized"] = table_result(
+            "grch38_sized", synthetic_table(dev, args.wide_blocks))
+    packed = idx.packed
+    reads = sample_reads(unpack_2bit(packed.pac, 0, packed.l_pac), args.reads)
+    res["seeding"] = seeding_rates(idx, fm, reads, MemOptions())
+    s = res["seeding"]
+    print(f"seeding {s['reads']} reads: collect_seeds_device {s['device_reads_per_s']:.0f} "
+          f"reads/s, native {s['native_reads_per_s']:.0f} reads/s, seeds identical; device "
+          f"time of one call: S1 {s['s1_device_ms']:.3f} ms ({s['s1_launches']} launches) + "
+          f"S3 {s['s3_device_ms']:.3f} ms ({s['s3_launches']}), copies "
+          f"{s['copy_device_ms']:.3f} ms, other {s['other_device_ms']:.3f} ms", flush=True)
+    if args.out:
+        with open(args.out, "w") as fh:
+            json.dump(res, fh, indent=1)
+    return res
+
+
+if __name__ == "__main__":
+    main()

@@ -16,12 +16,28 @@ result line):
      (integer outputs: tolerance 0) and the reference's scalar ksw oracle
      on 256 problems (all 128 for the z batches); both are timed with CUDA
      events;
-  3. the align main path (arachne_tpu_torch.cli align --engine cuda) on a
-     2 Mbp genome with 19,200 simulated linked-read pairs (indel rate 0.1);
-     every kernel must have launched in that run and accuracy must reach
-     0.99;
+  then the library: a 2 Mbp genome, its index and 19,200 simulated
+  linked-read pairs of 150 bp (indel rate 0.1);
+  2b. seeding kernels: K5 rank queries on the library's index and on a
+     synthetic GRCh38-sized wide table (2048 rows each, edge rows
+     included); S1 (pass 1 and the first pass-2 round) and S3 on one
+     superbatch of the library (4096 pairs, 8192 reads of 150 bp), with the
+     main path's buffers (seed_buffers of the padded width: no read may
+     overflow) and with MAXC=2, MAXS=4, which overflow.  Each must equal
+     its plain version on the card exactly (out, out_n and the overflow
+     flags); both are timed with CUDA events.
+     Then K5's own path, ``python -m arachne_tpu_torch.seeding_bench`` on
+     the library's index: rank queries/s at three batch sizes on both
+     tables, and device against host seeding on 4096 reads;
+  3. the align main path (arachne_tpu_torch.cli align --engine cuda, host
+     seeding) on the library; every kernel K1-K4 must have launched in that
+     run and accuracy must reach 0.99;
   4. byte identity of the SAM shards with the scalar oracle engine on a
-     300-pair fixture.
+     300-pair fixture;
+  5. the main path with device seeding (ARACHNE_DEVICE_SEEDING=1) on the
+     same library: S1, S3 and K1-K4 must have launched, no read may have
+     been redone after an overflow, accuracy must reach 0.99, and every SAM
+     shard must be byte-identical to phase 3's.
 
 The last three lines of standard output are the kernel table (one JSON
 object), the card's name and power limit as nvidia-smi gives them, and
@@ -150,25 +166,8 @@ def on_device(dev, qs, ts, qmax, tmax, *per_problem):
 
 
 # ----------------------------------------------------------------------
-# timing and comparison
+# comparison
 # ----------------------------------------------------------------------
-
-def cuda_ms(fn, reps):
-    """Mean ms per call over ``reps`` calls, after one warm call, with CUDA
-    events around the whole run."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
 
 def max_abs_err(pairs):
     err = 0
@@ -184,6 +183,20 @@ def require_equal(name, pairs):
     if err != 0:
         raise AssertionError(f"{name}: kernel differs from its plain version (max abs err {err})")
     return err
+
+
+def timed(fn):
+    """(fn(), its milliseconds on the current CUDA device by CUDA events)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
 
 
 def require_oracle(name, bad, n):
@@ -221,6 +234,7 @@ def probe_and_build():
 def kernel_parity(dev):
     from arachne_tpu.align import ksw
     from arachne_tpu.config import MemOptions
+    from arachne_tpu_torch.device import cuda_ms
     from arachne_tpu_torch.ops.cuda_extend import extend_cuda
     from arachne_tpu_torch.ops.cuda_global import (
         global_score_cuda, global_z_cuda, traceback_cuda,
@@ -352,62 +366,193 @@ def kernel_parity(dev):
     return rows
 
 
-@phase("3 main path")
-def main_path(work, dev):
-    import torch
-
+@phase("library")
+def library(work):
     from arachne_tpu.align.smem_native import smem_available
-    from arachne_tpu.runtime.accuracy import evaluate_sam
-    from arachne_tpu.runtime.timers import TIMERS
-    from arachne_tpu_torch import cli
-    from arachne_tpu_torch.ops import sw_global
-    from arachne_tpu_torch.ops.cuda_extend import extend_cuda
-    from arachne_tpu_torch.ops.cuda_global import (
-        global_score_cuda, global_z_cuda, traceback_cuda,
-    )
-    from arachne_tpu_torch.ops.cuda_local import local_cuda
-    from arachne_tpu_torch.measure import make_library, quiet
-    from arachne_tpu_torch.ops.engine import warmup
+    from arachne_tpu_torch.measure import make_library
 
     # 2 Mbp genome, 320 barcodes x 3 molecules x 20 pairs, indel rate 0.1
     ref, r1, r2, n, t_index, t_sim = make_library(work)
     log(f"   index of 2 Mbp built in {t_index:.1f} s")
     log(f"   simulated {n} pairs in {t_sim:.1f} s")
     log(f"   native host library loaded: {smem_available()}")
+    return ref, r1, r2, n
 
+
+def library_reads(r1, r2, n_pairs):
+    """The first ``n_pairs`` pairs of the library as 2n code arrays."""
+    import gzip
+
+    from arachne_tpu.align.pipeline import seq_to_codes
+
+    reads = []
+    with gzip.open(r1, "rt") as f1, gzip.open(r2, "rt") as f2:
+        for k, (l1, l2) in enumerate(zip(f1, f2)):
+            if k // 4 >= n_pairs:
+                break
+            if k % 4 == 1:
+                reads += [seq_to_codes(l1.strip()), seq_to_codes(l2.strip())]
+    return reads
+
+
+MAIN_LAUNCHERS = ("K1", "K2", "K3 score", "K3 z", "K4")
+
+
+def launchers():
+    from arachne_tpu_torch.ops.cuda_extend import extend_cuda
+    from arachne_tpu_torch.ops.cuda_global import (
+        global_score_cuda, global_z_cuda, traceback_cuda,
+    )
+    from arachne_tpu_torch.ops.cuda_local import local_cuda
+    from arachne_tpu_torch.ops.cuda_rank import rank_cuda
+    from arachne_tpu_torch.ops.cuda_seed import pass3_cuda, smem_pass_cuda
+
+    return {
+        "K1": extend_cuda, "K2": local_cuda, "K3 score": global_score_cuda,
+        "K3 z": global_z_cuda, "K4": traceback_cuda, "K5": rank_cuda,
+        "S1": smem_pass_cuda, "S3": pass3_cuda,
+    }
+
+
+def reset_counts():
+    from arachne_tpu.runtime.timers import TIMERS
+    from arachne_tpu_torch.ops import fm_seed, sw_global
+
+    for fn in launchers().values():
+        fn.launches = 0
+    sw_global.traceback_fetches = 0
+    fm_seed.overflow_redos = 0
+    TIMERS.reset()
+
+
+@phase("2b seeding kernels")
+def seeding_parity(dev, lib, work):
+    import torch
+
+    from arachne_tpu.config import MemOptions, PipelineOptions
+    from arachne_tpu.index import FMIndex, load_index
+    from arachne_tpu_torch import seeding_bench
+    from arachne_tpu_torch.device import cuda_ms
+    from arachne_tpu_torch.ops.fm_rank import DeviceFMIndex
+    from arachne_tpu_torch.ops.fm_seed import (
+        pad_reads, pass1_seeds, pass2_round, pass3, pass3_torch, seed_buffers, smem_pass,
+        smem_pass_torch,
+    )
+
+    ref, r1, r2, _ = lib
+    opt = MemOptions()
+    idx = FMIndex(*load_index(ref + ".arx.npz"))
+    fm = DeviceFMIndex.from_host(idx, dev)
+    rows = {}
+
+    # K5 ---------------------------------------------------------------
+    err_k5 = seeding_bench.rank_parity(fm)
+    wide = seeding_bench.synthetic_table(dev)
+    err_k5 = max(err_k5, seeding_bench.rank_parity(wide))
+    log(f"   K5: 2048 rows each on the index ({fm.seq_len} rows, int32) and the "
+        f"GRCh38-sized table ({wide.seq_len} rows, int64) equal the plain version")
+    del wide
+
+    # S1 and S3 on one superbatch of the library's reads -----------------
+    # The main path seeds a superbatch (reads_per_batch pairs) at a time
+    # with buffers of seed_buffers(L), which no read can overflow; MAXC=2,
+    # MAXS=4 overflow, so the flags are compared too.  The plain versions
+    # are timed on their comparison run (one run each).
+    reads = library_reads(r1, r2, PipelineOptions().reads_per_batch)
+    qs, qlens = pad_reads(reads, dev)
+    R, L = qs.shape
+    zeros = torch.zeros(R, dtype=torch.int32, device=dev)
+    ones = torch.ones(R, dtype=torch.int32, device=dev)
+    err_s1 = err_s3 = 0
+    for MAXC, MAXS in ((seed_buffers(L),) * 2, (2, 4)):
+        tag = f"MAXC={MAXC}, MAXS={MAXS}"
+        p1 = (qs, qlens, zeros, ones, False, MAXC, MAXS)
+        got1 = smem_pass(fm, *p1)
+        want1, plain1_ms = timed(lambda: smem_pass_torch(fm, *p1))
+        err_s1 = max(err_s1, require_equal(f"S1 pass 1, {tag}", zip(got1, want1)))
+        out1, n1, ovf1 = (t.cpu().numpy() for t in got1)
+        _, jobs = pass1_seeds(out1, n1, ovf1, len(reads), opt)
+        pivots, minis = pass2_round(jobs, qlens.cpu().numpy(), 0)
+        p2 = (qs, qlens, torch.from_numpy(pivots).to(dev), torch.from_numpy(minis).to(dev),
+              True, MAXC, MAXS)
+        got2 = smem_pass(fm, *p2)
+        err_s1 = max(err_s1, require_equal(f"S1 pass 2, {tag}", zip(got2, smem_pass_torch(fm, *p2))))
+        p3 = (qs, qlens, opt.min_seed_len, opt.max_mem_intv, MAXS)
+        got3 = pass3(fm, *p3)
+        want3, plain3_ms = timed(lambda: pass3_torch(fm, *p3))
+        err_s3 = max(err_s3, require_equal(f"S3, {tag}", zip(got3, want3)))
+        flags = [int(g[2].sum()) for g in (got1, got2, got3)]
+        log(f"   S1/S3, {tag}: equal on {len(reads)} reads (R {R}, L {L}); "
+            f"{sum(map(len, jobs))} pass-2 jobs; overflow flags pass 1 / pass-2 round / "
+            f"pass 3: {flags}")
+        if MAXC == 2:
+            if not (flags[0] and flags[2]):
+                raise AssertionError(f"{tag} should overflow in passes 1 and 3: {flags}")
+            continue
+        if any(flags):
+            raise AssertionError(f"{tag}: reads overflowed the main path's buffers: {flags}")
+        rows["S1"] = dict(err=err_s1, ms=cuda_ms(lambda: smem_pass(fm, *p1), 10),
+                          plain_ms=plain1_ms)
+        rows["S3"] = dict(err=err_s3, ms=cuda_ms(lambda: pass3(fm, *p3), 10),
+                          plain_ms=plain3_ms)
+    rows["S1"]["err"], rows["S3"]["err"] = err_s1, err_s3
+
+    # K5's own path: the rank benchmark, counted from zero ----------------
+    reset_counts()
+    bench = seeding_bench.main(["--index", ref + ".arx.npz", "--reads", "4096",
+                                "--out", os.path.join(work, "seeding_bench.json")])
+    k5_launches = launchers()["K5"].launches
+    if k5_launches <= 0:
+        raise AssertionError("K5 never launched in seeding_bench")
+    at = {name: t["batches"][-1] for name, t in bench["tables"].items()}
+    rows["K5"] = dict(err=err_k5, ms=at["grch38_sized"]["ms"],
+                      plain_ms=at["grch38_sized"]["plain_ms"],
+                      rank_qps={name: b["rank_qps"] for name, b in at.items()},
+                      plain_rank_qps={name: b["plain_rank_qps"] for name, b in at.items()})
+    for name, r in rows.items():
+        log(f"   {name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+            f"max abs err {r['err']} (tolerance 0)")
+    return rows, {"K5": k5_launches}, bench["seeding"]
+
+
+@phase("3 main path")
+def main_path(work, dev, lib):
+    import torch
+
+    from arachne_tpu.runtime.accuracy import evaluate_sam
+    from arachne_tpu.runtime.timers import TIMERS
+    from arachne_tpu_torch import cli
+    from arachne_tpu_torch.ops import sw_global
+    from arachne_tpu_torch.measure import quiet
+    from arachne_tpu_torch.ops.engine import warmup
+
+    ref, r1, r2, n = lib
     # the kernels are built and warmed before the counts start, so every
     # launch counted below is one the main path made
     warmup(dev)
-    launchers = {
-        "K1": extend_cuda, "K2": local_cuda, "K3 score": global_score_cuda,
-        "K3 z": global_z_cuda, "K4": traceback_cuda,
-    }
-    for fn in launchers.values():
-        fn.launches = 0
-    sw_global.traceback_fetches = 0
-    TIMERS.reset()
+    reset_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     out = os.path.join(work, "out_main")
     t0 = time.perf_counter()
     with quiet(os.path.join(work, "main_path.log")):
         stats = cli.main(["align", "--engine", "cuda", "--sam", "-t", "2", out, ref, r1, r2])
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in launchers.items()}
+    launches = {k: fn.launches for k, fn in launchers().items()}
     fetches = sw_global.traceback_fetches
     log(f"   launches in the main path: {launches}; traceback problems {fetches}")
-    if not all(v > 0 for v in launches.values()) or fetches <= 0:
+    if not all(launches[k] > 0 for k in MAIN_LAUNCHERS) or fetches <= 0:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
     log(f"   {stats.reads} pairs, {stats.reads / stats.elapsed:.1f} pairs/s "
         f"(align loop {stats.elapsed:.2f} s, whole call {wall:.2f} s)")
     log(f"   peak device memory {torch.cuda.max_memory_allocated(dev)} bytes")
-    log("   stage seconds: " + json.dumps(
-        {k: v["seconds"] for k, v in TIMERS.as_dict().items()}, sort_keys=True))
+    stages = {k: v["seconds"] for k, v in TIMERS.as_dict().items()}
+    log("   stage seconds: " + json.dumps(stages, sort_keys=True))
     acc = evaluate_sam(os.path.join(out, "bc_sorted_bam.sam"))
     ratio = acc.correct / max(acc.total, 1)
     log(f"   accuracy {acc.correct}/{acc.total} = {ratio:.4f}")
     if stats.reads != n or acc.total < 2 * n * 0.95 or ratio < 0.99:
         raise AssertionError(f"main path output wrong: {stats.reads} pairs, accuracy {ratio}")
-    return ref, launches
+    return {k: launches[k] for k in MAIN_LAUNCHERS}, out, stages
 
 
 @phase("4 byte identity with the oracle")
@@ -441,6 +586,56 @@ def byte_identity(work, ref):
             raise AssertionError(f"{f} differs between --engine cuda and --engine oracle")
 
 
+@phase("5 device-seeded main path")
+def device_seeded_path(work, dev, lib, host_out, host_stages):
+    import torch
+
+    from arachne_tpu.runtime.accuracy import evaluate_sam
+    from arachne_tpu.runtime.timers import TIMERS
+    from arachne_tpu_torch import cli
+    from arachne_tpu_torch.measure import quiet, same_shards
+    from arachne_tpu_torch.ops import fm_seed
+
+    ref, r1, r2, n = lib
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = os.path.join(work, "out_device_seeding")
+    saved = os.environ.get("ARACHNE_DEVICE_SEEDING")
+    os.environ["ARACHNE_DEVICE_SEEDING"] = "1"
+    try:
+        with quiet(os.path.join(work, "device_seeding.log")):
+            stats = cli.main(["align", "--engine", "cuda", "--sam", "-t", "2", out, ref, r1, r2])
+    finally:
+        if saved is None:
+            del os.environ["ARACHNE_DEVICE_SEEDING"]
+        else:
+            os.environ["ARACHNE_DEVICE_SEEDING"] = saved
+    launches = {k: fn.launches for k, fn in launchers().items()}
+    log(f"   launches in the device-seeded path: {launches}")
+    if not all(launches[k] > 0 for k in MAIN_LAUNCHERS + ("S1", "S3")):
+        raise AssertionError(f"a kernel of the device-seeded path never launched: {launches}")
+    stages = {k: v["seconds"] for k, v in TIMERS.as_dict().items()}
+    log(f"   {stats.reads} pairs, {stats.reads / stats.elapsed:.1f} pairs/s "
+        f"(align loop {stats.elapsed:.2f} s)")
+    log(f"   seed.device {stages.get('seed.device')} s against phase 3's seed.host "
+        f"{host_stages.get('seed.host')} s; {fm_seed.overflow_redos} reads redone after "
+        f"an overflow")
+    if fm_seed.overflow_redos:
+        raise AssertionError(f"{fm_seed.overflow_redos} reads overflowed the seeding buffers")
+    log(f"   peak device memory {torch.cuda.max_memory_allocated(dev)} bytes")
+    log("   stage seconds: " + json.dumps(stages, sort_keys=True))
+    acc = evaluate_sam(os.path.join(out, "bc_sorted_bam.sam"))
+    ratio = acc.correct / max(acc.total, 1)
+    log(f"   accuracy {acc.correct}/{acc.total} = {ratio:.4f}")
+    if stats.reads != n or acc.total < 2 * n * 0.95 or ratio < 0.99:
+        raise AssertionError(f"device-seeded output wrong: {stats.reads} pairs, accuracy {ratio}")
+    same = same_shards(host_out, out)
+    log(f"   shards byte-identical to phase 3's: {same}")
+    if not all(same.values()):
+        raise AssertionError(f"device seeding changed the output: {same}")
+    return {k: launches[k] for k in ("S1", "S3")}
+
+
 KERNELS = [
     ("K1", "extend_cuda", "arachne_tpu_torch/ops/csrc/extend.cu",
      "arachne_tpu/ops/pallas_extend.py:51"),
@@ -452,6 +647,12 @@ KERNELS = [
      "arachne_tpu/ops/pallas_global.py:134"),
     ("K4", "traceback_cuda", "arachne_tpu_torch/ops/csrc/global.cu",
      "arachne_tpu/ops/sw_global.py:149"),
+    ("K5", "rank_cuda", "arachne_tpu_torch/ops/csrc/rank.cu",
+     "arachne_tpu/ops/pallas_gather.py:47"),
+    ("S1", "smem_pass_cuda", "arachne_tpu_torch/ops/csrc/seed.cu",
+     "arachne_tpu/ops/fm_seed.py:44"),
+    ("S3", "pass3_cuda", "arachne_tpu_torch/ops/csrc/seed.cu",
+     "arachne_tpu/ops/fm_seed.py:322"),
 ]
 
 
@@ -479,18 +680,28 @@ def main() -> int:
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "build"))
     try:
-        ref, launches = main_path(work, dev)
-        byte_identity(work, ref)
+        lib = library(work)
+        seed_rows, launches, seeding = seeding_parity(dev, lib, work)
+        rows.update(seed_rows)
+        main_launches, host_out, host_stages = main_path(work, dev, lib)
+        launches.update(main_launches)
+        byte_identity(work, lib[0])
+        launches.update(device_seeded_path(work, dev, lib, host_out, host_stages))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log("phases: " + ", ".join(f"{n} {s:.1f} s" for n, s in PHASES))
+    log(f"seeding on {seeding['reads']} reads: collect_seeds_device "
+        f"{seeding['device_reads_per_s']:.0f} reads/s (device time of all its S1/S3 "
+        f"launches alone: {seeding['kernel_reads_per_s']} reads/s), native collector "
+        f"{seeding['native_reads_per_s']:.0f} reads/s")
     table = {
         "kernels": [
-            {
-                "name": f"{key} {fn}", "route": "cuda", "source": src, "replaces": rep,
-                "launches": launches[key], "max_abs_err": rows[key]["err"],
-                "ms": rows[key]["ms"], "plain_ms": rows[key]["plain_ms"],
-            }
+            dict(
+                {"name": f"{key} {fn}", "route": "cuda", "source": src, "replaces": rep,
+                 "launches": launches[key], "max_abs_err": rows[key]["err"],
+                 "ms": rows[key]["ms"], "plain_ms": rows[key]["plain_ms"]},
+                **{k: v for k, v in rows[key].items() if k.endswith("rank_qps")},
+            )
             for key, fn, src, rep in KERNELS
         ]
     }

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions on the card.
+"""The port's CUDA kernels against their plain PyTorch versions on the card,
+and device seeding against the host C++ collector.
 
 Every test here needs a CUDA device and skips without one.  The module
 imports no JAX, so it also runs where JAX is not installed:
@@ -126,3 +127,95 @@ def test_engine_on_card_matches_cpu_engine(dev):
     on_card = snap(process_barcodes(idx, cfg, sets, TorchEngine(idx, cfg, dev)))
     on_cpu = snap(process_barcodes(idx, cfg, sets, TorchEngine(idx, cfg, "cpu")))
     assert on_card == on_cpu
+
+
+@pytest.fixture(scope="module")
+def seeding_genome():
+    """A 40 kbp random genome with a planted repeat, its index and 512
+    reads of 150 bp from it."""
+    from arachne_tpu.index import FMIndex, build_fmindex, pack_reference, unpack_2bit
+    from arachne_tpu_torch.seeding_bench import sample_reads
+
+    rng = np.random.default_rng(25)
+    seq = "".join(np.array(list("ACGT"))[rng.integers(0, 4, 40_000)])
+    seq = seq[:9000] + seq[2000:4000] + seq[9000:]
+    packed = pack_reference([("chr1", "", seq)])
+    idx = FMIndex(packed, build_fmindex(packed))
+    return idx, sample_reads(unpack_2bit(packed.pac, 0, packed.l_pac), 512, seed=26)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+def test_rank_kernel_matches_plain(dev, seeding_genome, wide):
+    from arachne_tpu_torch.ops.cuda_rank import rank_cuda
+    from arachne_tpu_torch.ops.fm_rank import DeviceFMIndex, occ4_device, occ4_torch
+    from arachne_tpu_torch.seeding_bench import parity_rows, synthetic_table
+
+    idx, _ = seeding_genome
+    tables = [DeviceFMIndex.from_host(idx, dev, wide=wide)]
+    if wide:   # random words and counts over 4096 blocks
+        tables.append(synthetic_table(dev, 4096))
+    for fm in tables:
+        ks = parity_rows(fm, 4096)
+        before = rank_cuda.launches
+        got = occ4_device(fm, ks)
+        assert rank_cuda.launches == before + 1
+        assert torch.equal(got, occ4_torch(fm, ks))
+        if fm.seq_len == idx.seq_len:
+            assert np.array_equal(got.cpu().numpy(), idx.occ4(ks.cpu().numpy().astype(np.int64)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+@pytest.mark.parametrize("bufs", [(12, 48), (2, 4), None], ids=["12x48", "2x4", "sized"])
+def test_seed_kernels_match_plain(dev, seeding_genome, wide, bufs):
+    from arachne_tpu_torch.ops.cuda_seed import pass3_cuda, smem_pass_cuda
+    from arachne_tpu_torch.ops.fm_rank import DeviceFMIndex
+    from arachne_tpu_torch.ops.fm_seed import (
+        pad_reads, pass3, pass3_torch, seed_buffers, smem_pass, smem_pass_torch,
+    )
+
+    idx, reads = seeding_genome
+    fm = DeviceFMIndex.from_host(idx, dev, wide=wide)
+    # the small buffers make reads spin to the step cap: keep L at 64 there
+    qs, qlens = pad_reads([r[:60] if bufs == (2, 4) else r for r in reads[:256]], dev)
+    R, L = qs.shape
+    # None: the buffers collect_seeds_device gives the kernels
+    MAXC, MAXS = bufs or (seed_buffers(L),) * 2
+    rng = np.random.default_rng(27)
+    pivots = rng.integers(0, 1 << 20, R) % np.maximum(qlens.cpu().numpy(), 1)
+    pivots = torch.from_numpy(pivots.astype(np.int32)).to(dev)
+    minis = torch.from_numpy(rng.integers(1, 4, R).astype(np.int32)).to(dev)
+    zeros, ones = torch.zeros_like(pivots), torch.ones_like(pivots)
+    for single_sweep, piv, mi in ((False, zeros, ones), (True, pivots, minis)):
+        before = smem_pass_cuda.launches
+        got = smem_pass(fm, qs, qlens, piv, mi, single_sweep, MAXC, MAXS)
+        assert smem_pass_cuda.launches == before + 1
+        want = smem_pass_torch(fm, qs, qlens, piv, mi, single_sweep, MAXC, MAXS)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert bool(got[2].any()) == (MAXC == 2)
+    before = pass3_cuda.launches
+    got = pass3(fm, qs, qlens, OPT.min_seed_len, OPT.max_mem_intv, MAXS)
+    assert pass3_cuda.launches == before + 1
+    want = pass3_torch(fm, qs, qlens, OPT.min_seed_len, OPT.max_mem_intv, MAXS)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_collect_seeds_device_on_card_matches_native(dev, seeding_genome):
+    from arachne_tpu.align.smem_native import collect_seeds_native, smem_available
+    from arachne_tpu_torch.ops import fm_seed
+    from arachne_tpu_torch.ops.fm_rank import DeviceFMIndex
+
+    if not smem_available():
+        pytest.skip("the native host collector did not load")
+    idx, reads = seeding_genome
+    fm = DeviceFMIndex.from_host(idx, dev)
+    before = fm_seed.overflow_redos
+    got = fm_seed.collect_seeds_device(reads, OPT, fm)
+    assert got == collect_seeds_native(idx, reads, OPT)
+    assert fm_seed.overflow_redos == before
+    # small buffers: overflowing reads are redone on the card and counted
+    got = fm_seed.collect_seeds_device(reads[:64], OPT, fm, MAXC=2, MAXS=4)
+    assert fm_seed.overflow_redos > before
+    assert got == collect_seeds_native(idx, reads[:64], OPT)

@@ -79,3 +79,43 @@ def test_host_subcommands(sim, capsys):
     small.write_text(">c\n" + "ACGTTGCAAGGCTTAC" * 40 + "\n")
     port_main(["index", str(small)])
     assert os.path.exists(str(small) + ".arx.npz")
+
+
+@pytest.fixture(scope="module")
+def small_sim(tmp_path_factory):
+    """2 barcodes x 2 molecules x 5 pairs on a 40 kbp genome, with the
+    reference's oracle output."""
+    rng = np.random.default_rng(9)
+    genome = "".join(np.array(list("ACGT"))[rng.integers(0, 4, 40_000)])
+    tmp = tmp_path_factory.mktemp("torch_devseed")
+    fasta = str(tmp / "small.fa")
+    with open(fasta, "w") as fh:
+        fh.write(">chrS\n" + genome + "\n")
+    r1, r2 = str(tmp / "s.R1.fq.gz"), str(tmp / "s.R2.fq.gz")
+    n = simulate_linked_reads(
+        [("chrS", "", genome)], r1, r2,
+        SimConfig(n_barcodes=2, molecules_per_barcode=2, molecule_len=8000,
+                  pairs_per_molecule=5, indel_rate=0.2, vary_quals=True, seed=10),
+    )
+    out = str(tmp / "oracle")
+    reference_main(["align", "--sam", "--engine", "oracle", out, fasta, r1, r2])
+    return tmp, fasta, r1, r2, n, out
+
+
+def test_device_seeded_torch_cpu_byte_identical_to_oracle(small_sim, monkeypatch):
+    """ARACHNE_DEVICE_SEEDING=1 sends seeding through collect_seeds_device
+    (the plain S1 / S3 on the CPU); the shards stay the oracle's."""
+    from arachne_tpu.runtime.timers import TIMERS
+
+    tmp, fasta, r1, r2, n, oracle_out = small_sim
+    out = str(tmp / "torch_cpu_devseed")
+    monkeypatch.setenv("ARACHNE_DEVICE_SEEDING", "1")
+    TIMERS.reset()
+    stats = port_main(["align", "--sam", "--engine", "torch-cpu", "-t", "1", out, fasta, r1, r2])
+    stages = TIMERS.as_dict()
+    assert stats.reads == n == 20
+    assert stages["seed.device"]["calls"] > 0 and "seed.host" not in stages
+    names = sorted(os.listdir(oracle_out))
+    assert sorted(os.listdir(out)) == names
+    for f in names:
+        assert filecmp.cmp(os.path.join(oracle_out, f), os.path.join(out, f), shallow=False), f

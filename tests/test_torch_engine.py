@@ -145,3 +145,62 @@ def test_warmup_on_cpu_is_a_no_op(engine):
     before = extend_cuda.launches
     warmup(engine.device)
     assert extend_cuda.launches == before
+
+
+def test_device_seeding_resolution(monkeypatch):
+    """An explicit argument wins, then ARACHNE_DEVICE_SEEDING ("0"/"1"); any
+    other value raises rather than being ignored; unset means host seeding."""
+    from arachne_tpu_torch.ops.engine import resolve_device_seeding
+
+    monkeypatch.delenv("ARACHNE_DEVICE_SEEDING", raising=False)
+    assert resolve_device_seeding() is False
+    assert resolve_device_seeding(True) is True
+    monkeypatch.setenv("ARACHNE_DEVICE_SEEDING", "1")
+    assert resolve_device_seeding() is True
+    assert resolve_device_seeding(False) is False
+    monkeypatch.setenv("ARACHNE_DEVICE_SEEDING", "0")
+    assert resolve_device_seeding() is False
+    assert resolve_device_seeding(True) is True
+    for bad in ("true", "yes", "", "2"):
+        monkeypatch.setenv("ARACHNE_DEVICE_SEEDING", bad)
+        with pytest.raises(ValueError, match="ARACHNE_DEVICE_SEEDING"):
+            resolve_device_seeding()
+        with pytest.raises(ValueError):
+            TorchEngine(None, CFG, device="cpu")
+        assert resolve_device_seeding(True) is True
+
+
+def test_engines_share_one_table_upload(genome, monkeypatch):
+    from arachne_tpu_torch.ops import engine as engine_mod
+
+    idx, _ = genome
+    monkeypatch.delenv("ARACHNE_DEVICE_SEEDING", raising=False)
+    uploads = []
+    real = engine_mod.DeviceFMIndex.from_host
+    monkeypatch.setattr(engine_mod.DeviceFMIndex, "from_host",
+                        staticmethod(lambda *a, **k: uploads.append(a) or real(*a, **k)))
+    monkeypatch.setattr(engine_mod, "_tables", engine_mod.weakref.WeakKeyDictionary())
+    a = TorchEngine(idx, CFG, device="cpu", device_seeding=True)
+    b = TorchEngine(idx, CFG, device="cpu", device_seeding=True)
+    assert a.dfm is b.dfm and len(uploads) == 1
+    assert TorchEngine(idx, CFG, device="cpu").dfm is None
+
+
+def test_device_seeding_raises_when_the_tables_do_not_fit(genome, monkeypatch):
+    """No sharded mode and no silent switch to host seeding: a card
+    without room for the tables refuses device seeding."""
+    from arachne_tpu_torch.ops import engine as engine_mod
+
+    idx, _ = genome
+    monkeypatch.setattr(engine_mod, "_tables", engine_mod.weakref.WeakKeyDictionary())
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda device=None: (1024, 1 << 34))
+    with pytest.raises(RuntimeError, match="rank tables need"):
+        engine_mod.device_tables(idx, torch.device("cuda", 0))
+
+
+def test_device_seeded_barcode_identical_to_oracle(genome):
+    idx, fwd = genome
+    eng = TorchEngine(idx, CFG, device="cpu", device_seeding=True)
+    assert eng.dfm is not None
+    recs = make_reads(fwd, np.random.default_rng(17), n_pairs=6, indel=True)
+    assert_same_as_oracle(idx, recs, eng)

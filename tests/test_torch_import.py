@@ -27,6 +27,9 @@ class _Block(importlib.abc.MetaPathFinder):
 sys.meta_path.insert(0, _Block())
 import arachne_tpu_torch, arachne_tpu_torch.cli, arachne_tpu_torch.device
 import arachne_tpu_torch.ops.engine, arachne_tpu_torch.ops.build, arachne_tpu_torch.measure
+import arachne_tpu_torch.ops.fm_rank, arachne_tpu_torch.ops.fm_seed
+import arachne_tpu_torch.ops.cuda_rank, arachne_tpu_torch.ops.cuda_seed
+import arachne_tpu_torch.seeding_bench
 import chip_smoke
 assert "jax" not in sys.modules
 assert not any(m.startswith("arachne_tpu.ops") for m in sys.modules)
@@ -85,13 +88,21 @@ def test_launchers_refuse_cpu_tensors():
     from arachne_tpu_torch.ops.cuda_extend import extend_cuda
     from arachne_tpu_torch.ops.cuda_global import global_score_cuda, traceback_cuda
     from arachne_tpu_torch.ops.cuda_local import local_cuda
+    from arachne_tpu_torch.ops.cuda_rank import rank_cuda
+    from arachne_tpu_torch.ops.cuda_seed import pass3_cuda, smem_pass_cuda
+    from arachne_tpu_torch.ops.fm_rank import DeviceFMIndex
 
     qs = torch.zeros((2, 32), dtype=torch.int8)
     ts = torch.zeros((2, 64), dtype=torch.int8)
     v = torch.ones(2, dtype=torch.int32)
     mat = torch.zeros((5, 5), dtype=torch.int32)
     gaps = dict(o_del=6, e_del=1, o_ins=6, e_ins=1)
-    before = [f.launches for f in (extend_cuda, local_cuda, global_score_cuda, traceback_cuda)]
+    fm = DeviceFMIndex(occ=torch.zeros((2, 4), dtype=torch.int32),
+                       words=torch.zeros(8, dtype=torch.int32),
+                       L2=torch.zeros(5, dtype=torch.int32), primary=1, seq_len=128, l_pac=64)
+    launchers = (extend_cuda, local_cuda, global_score_cuda, traceback_cuda, rank_cuda,
+                 smem_pass_cuda, pass3_cuda)
+    before = [f.launches for f in launchers]
     with pytest.raises(ValueError):
         extend_cuda(qs, ts, v, v, v, v, mat, zdrop=100, **gaps)
     with pytest.raises(ValueError):
@@ -100,8 +111,13 @@ def test_launchers_refuse_cpu_tensors():
         global_score_cuda(qs, ts, v, v, v, mat, **gaps)
     with pytest.raises(ValueError):
         traceback_cuda(torch.zeros((2, 64, 32), dtype=torch.uint8), v, v, v, max_steps=96)
-    after = [f.launches for f in (extend_cuda, local_cuda, global_score_cuda, traceback_cuda)]
-    assert after == before
+    with pytest.raises(ValueError):
+        rank_cuda(fm, v)
+    with pytest.raises(ValueError):
+        smem_pass_cuda(fm, qs, v, v, v, False, 12, 48)
+    with pytest.raises(ValueError):
+        pass3_cuda(fm, qs, v, 19, 20, 48)
+    assert [f.launches for f in launchers] == before
 
 
 def test_block_threads_limit():

@@ -1,0 +1,234 @@
+"""The port's device seeding (arachne_tpu_torch/ops/fm_seed.py) on the CPU,
+where kernels S1 and S3 run as their plain lockstep versions:
+
+  * the raw out / out_n / overflow of both against the JAX package's jitted
+    programs (arachne_tpu/ops/fm_seed.py), narrow and wide, with the
+    production buffers and with MAXC=2, MAXS=4, which overflow;
+  * collect_seeds_device against the JAX collect_seeds_device and the
+    scalar collector on the read families of tests/test_fm_seed.py;
+  * batch_align_single with and without device seeding.
+
+Integer outputs: tolerance 0."""
+
+import contextlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from arachne_tpu.align.smem import collect_seeds
+from arachne_tpu.config import MemOptions
+from arachne_tpu.index import FMIndex, build_fmindex, pack_reference, unpack_2bit
+from arachne_tpu.ops import fm_rank as jfm
+from arachne_tpu.ops import fm_seed as jfs
+from arachne_tpu_torch.ops import fm_rank as tfm
+from arachne_tpu_torch.ops import fm_seed as tfs
+from arachne_tpu_torch.ops.cuda_seed import pass3_cuda, smem_pass_cuda
+
+torch.set_num_threads(1)
+OPT = MemOptions()
+FAMILIES = ("clean", "mutated_n", "repeat", "edge")
+
+
+@pytest.fixture(scope="module")
+def genome(small_reference):
+    packed = pack_reference(small_reference)
+    idx = FMIndex(packed, build_fmindex(packed))
+    return idx, unpack_2bit(packed.pac, 0, packed.l_pac)
+
+
+@pytest.fixture(scope="module")
+def families(genome):
+    """The read families of tests/test_fm_seed.py:47-95, from a fixed seed."""
+    idx, fwd = genome
+    rng = np.random.default_rng(47)
+    clean = []
+    for _ in range(20):
+        pos = int(rng.integers(0, len(fwd) - 130))
+        r = fwd[pos : pos + 120].copy()
+        clean.append((3 - r[::-1]).astype(np.uint8) if rng.integers(0, 2) else r)
+    mutated = []
+    for _ in range(25):
+        pos = int(rng.integers(0, len(fwd) - 160))
+        r = fwd[pos : pos + 150].copy()
+        for _ in range(int(rng.integers(0, 8))):
+            j = int(rng.integers(0, 150))
+            r[j] = (r[j] + 1) % 4
+        if rng.integers(0, 3) == 0:
+            r[int(rng.integers(0, 150))] = 4   # N
+        mutated.append(r)
+    repeat = [fwd[400 + 30 * i : 400 + 30 * i + 100].copy() for i in range(8)]
+    edge = [fwd[:25].copy(), fwd[-40:].copy(), np.full(30, 4, np.uint8), fwd[100:119].copy()]
+    return dict(zip(FAMILIES, (clean, mutated, repeat, edge)))
+
+
+def all_reads(families):
+    return [r for f in FAMILIES for r in families[f]]
+
+
+def family_slice(families, name):
+    start = sum(len(families[f]) for f in FAMILIES[: FAMILIES.index(name)])
+    return slice(start, start + len(families[name]))
+
+
+@contextlib.contextmanager
+def both_tables(idx, wide):
+    """(JAX DeviceFMIndex, port DeviceFMIndex on the CPU); wide JAX tables
+    turn jax_enable_x64 on process-wide, so it is turned off again after."""
+    try:
+        yield jfm.DeviceFMIndex.from_host(idx, wide=wide), tfm.DeviceFMIndex.from_host(
+            idx, "cpu", wide=wide)
+    finally:
+        jax.config.update("jax_enable_x64", False)
+
+
+def assert_same(port, ref):
+    for p, r in zip(port, ref):
+        r = np.asarray(r)
+        assert p.shape == r.shape
+        assert np.array_equal(p.numpy(), r)
+
+
+def batch(families, short):
+    """The reads padded as collect_seeds_device pads them; ``short`` cuts
+    every read to 60 bases (L = 64), which keeps the overflow cases, whose
+    spinning reads run to the step cap, quick."""
+    reads = all_reads(families)
+    if short:
+        reads = [r[:60] for r in reads]
+    return tfs.pad_reads(reads, "cpu")
+
+
+S1_CASES = [(ss, wide, bufs) for bufs in ((12, 48), (2, 4))
+            for wide in (False, True) for ss in (False, True)]
+
+
+@pytest.mark.parametrize(
+    "single_sweep,wide,bufs", S1_CASES,
+    ids=[f"{'pass2' if s else 'pass1'}-{'wide' if w else 'narrow'}-{b[0]}x{b[1]}"
+         for s, w, b in S1_CASES])
+def test_smem_pass_matches_jax(genome, families, single_sweep, wide, bufs):
+    idx, _ = genome
+    MAXC, MAXS = bufs
+    qs, qlens = batch(families, short=MAXC == 2)
+    R, L = qs.shape
+    rng = np.random.default_rng(48)
+    if single_sweep:   # one sweep from a random pivot with min_intv 1..3
+        pivots = (rng.integers(0, 1 << 20, R) % np.maximum(qlens.numpy(), 1)).astype(np.int32)
+        minis = rng.integers(1, 4, R).astype(np.int32)
+    else:
+        pivots, minis = np.zeros(R, np.int32), np.ones(R, np.int32)
+    before = smem_pass_cuda.launches
+    with both_tables(idx, wide) as (jd, td):
+        port = tfs.smem_pass(td, qs, qlens, torch.from_numpy(pivots), torch.from_numpy(minis),
+                             single_sweep, MAXC, MAXS)
+        ref = jfs._smem_pass_kernel(
+            jd.occ, jd.words, jd.L2, jd.primary, jd.seq_len, jnp.asarray(qs.numpy()),
+            jnp.asarray(qlens.numpy()), jnp.asarray(pivots), jnp.asarray(minis),
+            single_sweep, R, L, MAXC, MAXS)
+    assert_same(port, ref)
+    assert smem_pass_cuda.launches == before
+    assert port[0].dtype == td.idt and int(port[1].sum()) > 0
+    assert bool(port[2].any()) == (MAXC == 2)
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+@pytest.mark.parametrize("MAXS", [48, 4])
+def test_pass3_matches_jax(genome, families, wide, MAXS):
+    idx, _ = genome
+    qs, qlens = batch(families, short=False)
+    R, L = qs.shape
+    before = pass3_cuda.launches
+    with both_tables(idx, wide) as (jd, td):
+        port = tfs.pass3(td, qs, qlens, OPT.min_seed_len, OPT.max_mem_intv, MAXS)
+        ref = jfs._pass3_kernel(
+            jd.occ, jd.words, jd.L2, jd.primary, jd.seq_len, jnp.asarray(qs.numpy()),
+            jnp.asarray(qlens.numpy()), OPT.min_seed_len, OPT.max_mem_intv, R, L, MAXS)
+    assert_same(port, ref)
+    assert pass3_cuda.launches == before
+    assert int(port[1].sum()) > 0
+    assert bool(port[2].any()) == (MAXS == 4)
+
+
+@pytest.fixture(scope="module", params=[False, True], ids=["narrow", "wide"])
+def collected(request, genome, families):
+    """collect_seeds_device of the port and of the JAX package on all the
+    families at once (one batch: R = 64, L = 192)."""
+    idx, _ = genome
+    reads = all_reads(families)
+    with both_tables(idx, request.param) as (jd, td):
+        port = tfs.collect_seeds_device(reads, OPT, td)
+        ref = jfs.collect_seeds_device(idx, reads, OPT, dfm=jd)
+    return port, ref
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_collect_seeds_device_matches_jax_and_scalar(genome, families, collected, family):
+    idx, _ = genome
+    port, ref = collected
+    sl = family_slice(families, family)
+    for read, p, r in zip(families[family], port[sl], ref[sl]):
+        assert p == r
+        assert p == collect_seeds(idx, read, OPT)
+
+
+def test_overflowing_reads_fall_back_to_the_host(genome, families):
+    """With MAXC=2, MAXS=4 many reads overflow; they are redone on the same
+    device with buffers of seed_buffers size (never by a host collector),
+    counted, and their seeds equal the scalar collector's."""
+    idx, _ = genome
+    reads = [r[:60] for r in all_reads(families)]
+    td = tfm.DeviceFMIndex.from_host(idx, "cpu")
+    before = tfs.overflow_redos
+    got = tfs.collect_seeds_device(reads, OPT, td, MAXC=2, MAXS=4)
+    assert tfs.overflow_redos - before > 0
+    for read, g in zip(reads, got):
+        assert g == collect_seeds(idx, read, OPT)
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+def test_seed_buffers_hold_every_read(genome, families, wide):
+    """At seed_buffers(L) no read of any family overflows: pass 1, one
+    sweep from random pivots with min_intv 1..3, and pass 3."""
+    idx, _ = genome
+    qs, qlens = batch(families, short=False)
+    R, L = qs.shape
+    B = tfs.seed_buffers(L)
+    rng = np.random.default_rng(49)
+    pivots = (rng.integers(0, 1 << 20, R) % np.maximum(qlens.numpy(), 1)).astype(np.int32)
+    minis = rng.integers(1, 4, R).astype(np.int32)
+    td = tfm.DeviceFMIndex.from_host(idx, "cpu", wide=wide)
+    zeros, ones = torch.zeros(R, dtype=torch.int32), torch.ones(R, dtype=torch.int32)
+    for piv, mi, single in ((zeros, ones, False), (torch.from_numpy(pivots), torch.from_numpy(minis), True)):
+        out, n, ovf = tfs.smem_pass(td, qs, qlens, piv, mi, single, B, B)
+        assert not bool(ovf.any()) and int(n.sum()) > 0
+    out, n, ovf = tfs.pass3(td, qs, qlens, OPT.min_seed_len, OPT.max_mem_intv, B)
+    assert not bool(ovf.any()) and int(n.sum()) > 0
+
+
+def test_overflow_at_seed_buffers_raises(genome, families, monkeypatch):
+    """A read that overflows buffers of seed_buffers size is a fault, not a
+    case to patch up on the host: collect_seeds_device raises."""
+    idx, _ = genome
+    td = tfm.DeviceFMIndex.from_host(idx, "cpu")
+    monkeypatch.setattr(tfs, "seed_buffers", lambda L: 2)
+    before = tfs.overflow_redos
+    with pytest.raises(RuntimeError, match="overflowed"):
+        tfs.collect_seeds_device([r[:60] for r in families["clean"][:4]], OPT, td)
+    assert tfs.overflow_redos == before
+
+
+def test_batch_align_single_with_device_seeding(genome, families):
+    from arachne_tpu_torch.ops.batch import batch_align_single
+    from arachne_tpu_torch.ops.sw_extend import BatchExtender
+
+    idx, _ = genome
+    reads = families["mutated_n"][:10] + families["repeat"][:4] + families["clean"][:4]
+    ext = BatchExtender(OPT, torch.device("cpu"))
+    host = batch_align_single(idx, OPT, reads, ext)
+    dev = batch_align_single(idx, OPT, reads, ext,
+                             dfm=tfm.DeviceFMIndex.from_host(idx, "cpu"))
+    assert dev == host
+    assert sum(len(r) for r in dev) >= len(reads)
