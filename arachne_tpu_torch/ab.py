@@ -11,9 +11,13 @@ on the same inputs (``ops.problems.MAIN``, the main path's shapes, as
 ``chip_smoke.py`` phase 2 checks them) with every launch routed to one
 library or the other: both must give equal outputs, and they are timed in
 turns (parent, this, this, parent) for five rounds, each turn the mean of
-ten launches by CUDA events.  It prints one line per kernel with
-the medians, the card's name and power limit, and the result as JSON (also
-written to ``--out``).
+ten launches by CUDA events.  Those times hold the wrapper's host work too
+(checks, allocations, the launch), which is all they show once a kernel
+takes less than that: so each side's device time per call (the kernels'
+own, by torch.profiler, the zeroing of an output included) is measured as
+well, and the speedup is taken from it.  It prints one line per kernel
+with the medians, the card's name and power limit, and the result as JSON
+(also written to ``--out``).
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import numpy as np
 import torch
 
 from .config import MemOptions
-from .device import cuda_ms, probe, resolve_device
+from .device import cuda_ms, device_ms, probe, resolve_device
 from .ops import build
 from .ops.problems import MAIN, extend_problems, global_problems, local_problems, on_device
 
@@ -89,8 +93,15 @@ def compare(name: str, fn, args, kw, parent) -> dict:
             with build.routed_to(parent if side == "parent" else this):
                 times[side].append(cuda_ms(run, REPS))
     med = {side: float(np.median(t)) for side, t in times.items()}
+    dev = {}
+    for side, lib in (("parent", parent), ("this", this)):
+        with build.routed_to(lib):
+            dev[side] = device_ms(run, REPS)
+    if None in dev.values():
+        raise RuntimeError(f"{name}: the profiler saw no device time")
     return dict(parent_ms=med["parent"], this_ms=med["this"],
-                speedup=med["parent"] / med["this"], runs=times)
+                parent_device_ms=dev["parent"], this_device_ms=dev["this"],
+                speedup=dev["parent"] / dev["this"], runs=times)
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
@@ -121,7 +132,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
             result["kernels"][name] = r
             print(f"{name} {'x'.join(map(str, shape))}: parent median {r['parent_ms']:.4f} ms "
                   f"{['%.4f' % t for t in r['runs']['parent']]}; this median "
-                  f"{r['this_ms']:.4f} ms {['%.4f' % t for t in r['runs']['this']]}; "
+                  f"{r['this_ms']:.4f} ms {['%.4f' % t for t in r['runs']['this']]}; device "
+                  f"time {r['parent_device_ms']:.4f} against {r['this_device_ms']:.4f} ms, "
                   f"{r['speedup']:.2f}x", flush=True)
     print(card)
     print(json.dumps(result))

@@ -14,7 +14,9 @@ makes the fixture chip_smoke.py runs (by default a 2 Mbp random genome and
     time of each kernel and copy by name;
   * ``--compare E ...``: the same library through each other engine, with
     every SAM shard compared byte for byte with the first trial's (exit
-    code 1 if any differs).
+    code 1 if any differs);
+  * ``--bands``: the band widths w of the CIGAR-stage problems the first
+    trial submits to ``BatchGlobal`` (kernels K3 and K4), as {w: count}.
 
 Every run is bracketed by the card's name, power limit, SM clock and power
 draw from nvidia-smi.  The result is one JSON object, written to ``--out``
@@ -96,6 +98,25 @@ def card_state():
                         "--format=csv,noheader"])
 
 
+@contextlib.contextmanager
+def recorded_bands(counts):
+    """Count, in ``counts``, the band width of every problem submitted to
+    ``BatchGlobal`` while the block runs."""
+    from .ops.sw_global import BatchGlobal
+
+    submit = BatchGlobal.submit
+
+    def counting(self, query, target, w):
+        counts[int(w)] = counts.get(int(w), 0) + 1
+        return submit(self, query, target, w)
+
+    BatchGlobal.submit = counting
+    try:
+        yield
+    finally:
+        BatchGlobal.submit = submit
+
+
 def timed_run(engine, out, lib, threads):
     from .runtime.timers import TIMERS
 
@@ -146,6 +167,7 @@ def main(argv=None):
     ap.add_argument("--trials", type=int, default=3)
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--compare", nargs="*", default=[], metavar="ENGINE")
+    ap.add_argument("--bands", action="store_true")
     ap.add_argument("-t", "--threads", type=int, default=2)
     ap.add_argument("--genome-bp", type=int, default=2_000_000)
     ap.add_argument("--barcodes", type=int, default=320)
@@ -176,11 +198,16 @@ def main(argv=None):
         warmup(dev)
         res["card_before"] = card_state()
         res["trials"] = []
+        bands = {}
         for k in range(args.trials):
-            run = timed_run(args.engine, os.path.join(work, f"trial{k}"), lib, args.threads)
+            with recorded_bands(bands) if args.bands and k == 0 else contextlib.nullcontext():
+                run = timed_run(args.engine, os.path.join(work, f"trial{k}"), lib, args.threads)
             res["trials"].append(run)
             print(f"trial {k}: {run['pairs_per_s']} pairs/s, align loop "
                   f"{run['align_loop_s']} s; {run['card_after']}", flush=True)
+        if args.bands:
+            res["bands"] = {str(w): n for w, n in sorted(bands.items())}
+            print(f"CIGAR-stage band widths (w: problems): {res['bands']}", flush=True)
         if args.profile:
             run = profiled_run(os.path.join(work, "profiled"), lib, args.threads, dev)
             res["profiled"] = run

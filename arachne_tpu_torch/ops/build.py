@@ -197,7 +197,8 @@ def launch(wrapper, entry: str, device: torch.device, *args) -> None:
 def check_problems(name: str, qs, ts, mat, **per_problem) -> tuple:
     """Raise unless qs (B, qmax) and ts (B, tmax) int8, every per-problem
     tensor (B,) int32 and mat (5, 5) int32 are contiguous on one CUDA
-    device, with qmax within a block; returns (device, B, qmax, tmax)."""
+    device, with qmax within the kernels' 1024 columns; returns (device, B,
+    qmax, tmax)."""
     dev = qs.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: tensors on {dev}, expected a CUDA device")
@@ -226,9 +227,9 @@ def require(t: torch.Tensor, name: str, dtype, shape, device) -> None:
 
 
 def block_threads(qmax: int) -> int:
-    """Threads per block for a one-problem-per-block kernel: one thread per
-    query column, rounded up to a warp."""
+    """qmax rounded up to a warp; raises above 1024 columns, the widest
+    query the DP kernels' 32 lanes cover with their widest strip (32)."""
     n = -(-max(qmax, 1) // 32) * 32
     if n > 1024:
-        raise ValueError(f"qmax {qmax} needs {n} threads per block; at most 1024")
+        raise ValueError(f"qmax {qmax}: the DP kernels cover at most 1024 query columns")
     return n

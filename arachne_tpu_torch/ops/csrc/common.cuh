@@ -1,17 +1,15 @@
 // Shared pieces of the DP kernels.
 //
-// global.cu runs one block per problem: thread j owns query column j, so
-// blockDim.x is qmax rounded up to a warp (at most 1024, 32 warps).  The
-// block walks the target rows; each row needs the previous row's H at
-// column j-1 (shared memory), an exclusive prefix max across the columns
-// for the F (gap-in-query) recurrence, and block reductions for the row's
-// scalars.
-//
-// extend.cu and local.cu run one warp per problem, ARACHNE_WARPS problems
-// per block: lane l owns the strip of S consecutive query columns
-// [l*S, l*S + S), with H and E in registers, so a row needs no barrier:
-// the column before a strip comes from the left lane by one shuffle, F
-// crosses lanes by a warp scan, and the row's scalars are warp reductions.
+// extend.cu, local.cu and global.cu run one warp per problem,
+// ARACHNE_WARPS problems per block: lane l owns the strip of S consecutive
+// query columns [l*S, l*S + S), with H and E in registers, so a row needs
+// no barrier: the column before a strip comes from the left lane by one
+// shuffle.  In extend.cu and local.cu the 32 lanes work on one row: F
+// crosses lanes by a warp scan, the row's scalars are warp reductions, and
+// the target codes are fetched 32 rows at a time, one per lane, and
+// broadcast by shuffle.  In global.cu, which has no per-row scalars, lane l
+// works one row behind lane l - 1, and F and the row's target code come
+// from the left lane too.
 #pragma once
 
 #include <climits>
@@ -19,38 +17,35 @@
 #include <cuda_runtime.h>
 
 #define ARACHNE_FULL_MASK 0xffffffffu
-#define ARACHNE_MAX_THREADS 1024
-#define ARACHNE_MAX_WARPS 32
 
 // Score of an out-of-band / unreachable global-DP cell (ksw.c MINUS_INF).
 #define ARACHNE_MINUS_INF (-0x40000000)
-
-// Exclusive prefix max over the block: thread j gets max(x[0..j-1]),
-// thread 0 gets `ident`.  A warp-shuffle scan plus one cross-warp pass
-// through `warp_tot` (ARACHNE_MAX_WARPS ints of shared memory).  Contains
-// one __syncthreads(); the caller must not rewrite `warp_tot` until every
-// thread has passed a later barrier.
-__device__ __forceinline__ int block_excl_prefix_max(int x, int ident, int* warp_tot) {
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    int incl = x;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-        const int y = __shfl_up_sync(ARACHNE_FULL_MASK, incl, d);
-        if (lane >= d) incl = max(incl, y);
-    }
-    int excl = __shfl_up_sync(ARACHNE_FULL_MASK, incl, 1);
-    if (lane == 0) excl = ident;
-    if (lane == 31) warp_tot[warp] = incl;
-    __syncthreads();
-    for (int w = 0; w < warp; ++w) excl = max(excl, warp_tot[w]);
-    return excl;
-}
 
 // Load the 5x5 scoring matrix (row = target code, column = query code)
 // into shared memory; the caller's next __syncthreads() publishes it.
 __device__ __forceinline__ void load_matrix(const int* __restrict__ mat_g, int* mat) {
     if (threadIdx.x < 25) mat[threadIdx.x] = mat_g[threadIdx.x];
+}
+
+// The code of target row i (4, the code of N, at and past tlen).  The warp
+// keeps 32 target codes, one per lane in `tcodes`, refetched when i reaches
+// a multiple of 32, and broadcasts row i's by shuffle.  Every lane of the
+// warp must call it, with i rising by one from 0.
+__device__ __forceinline__ int target_code(
+    const int8_t* __restrict__ trow, int i, int tlen, int& tcodes)
+{
+    if ((i & 31) == 0) {
+        const int r = i + (threadIdx.x & 31);
+        tcodes = r < tlen ? (int)trow[r] : 4;
+    }
+    return __shfl_sync(ARACHNE_FULL_MASK, tcodes, i & 31);
+}
+
+// The scoring-matrix row of target row i.
+__device__ __forceinline__ const int* target_matrix_row(
+    const int8_t* __restrict__ trow, int i, int tlen, const int* mat, int& tcodes)
+{
+    return mat + 5 * target_code(trow, i, tlen, tcodes);
 }
 
 // Exclusive prefix max across the warp: lane l gets max(x of lanes < l),
@@ -100,8 +95,4 @@ static inline int arachne_strip(int qmax) {
     for (int s : widths)
         if (s >= need) return s;
     return 0;
-}
-
-static inline int arachne_block_threads(int qmax) {
-    return ((qmax > 0 ? qmax : 1) + 31) / 32 * 32;
 }

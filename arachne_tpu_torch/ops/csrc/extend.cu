@@ -83,11 +83,7 @@ __global__ void __launch_bounds__(ARACHNE_WARPS * 32) extend_kernel(
     const int8_t* trow = ts + (size_t)b * tmax;
     int tcodes = 4;
     for (int i = 0; i < tlen; ++i) {
-        if ((i & 31) == 0) {
-            const int r = i + lane;
-            tcodes = r < tlen ? (int)trow[r] : 4;
-        }
-        const int* mrow = mat + 5 * __shfl_sync(ARACHNE_FULL_MASK, tcodes, i & 31);
+        const int* mrow = target_matrix_row(trow, i, tlen, mat, tcodes);
         // adaptive end (ksw.c:417-418,468-469)
         const int end_used = min(min(end, i + w + 1), qlen);
         const int lo = max(i - w, 0);

@@ -77,11 +77,7 @@ __global__ void __launch_bounds__(ARACHNE_WARPS * 32) local_kernel(
     const int8_t* trow = ts + (size_t)b * tmax;
     int tcodes = 4;
     for (int i = 0; i < tlen; ++i) {
-        if ((i & 31) == 0) {
-            const int r = i + lane;
-            tcodes = r < tlen ? (int)trow[r] : 4;
-        }
-        const int* mrow = mat + 5 * __shfl_sync(ARACHNE_FULL_MASK, tcodes, i & 31);
+        const int* mrow = target_matrix_row(trow, i, tlen, mat, tcodes);
         int Hleft = __shfl_up_sync(ARACHNE_FULL_MASK, H[S - 1], 1);
         if (lane == 0) Hleft = 0;
 

@@ -95,6 +95,62 @@ def global_problems(seed, B, qmax, tmax, max_indel):
     return qs, ts, np.asarray(ws, np.int32)
 
 
+# the kinds of ``edge_global_problems``, problem b being of kind b % 9: an
+# odd count, so the two warps of a block never hold the same kind
+EDGE_GLOBAL_KINDS = (
+    "w=0", "w=1", "w>=qmax", "tlen=0", "one-base query", "full size",
+    "corner on the band's edge", "deletion run", "insertion run",
+)
+BAND_CAP = 400      # the widest band the engine gives the CIGAR stage
+
+
+def edge_global_problems(seed, B, qmax, tmax):
+    """K3/K4 problems (qs, ts, ws) at the edges of the warp-per-problem
+    kernels, kind by kind (``EDGE_GLOBAL_KINDS``): w = 0 (the band lies
+    inside one strip) and w = 1 (it straddles two lanes on some rows); a
+    band wider than the query, up to ``BAND_CAP``; tlen = 0; a one-base
+    query; qlen = qmax with tlen = tmax; |qlen - tlen| = w, so that the
+    corner cell sits on the band's edge; and a deletion and an insertion
+    of 36-40 bases, whose walks leave a 32 x 32 window of direction bytes
+    by its top and by its left edge."""
+    rng = np.random.default_rng(seed)
+    span = min(qmax, tmax)
+    qs, ts, ws = [], [], []
+    for b in range(B):
+        kind = EDGE_GLOBAL_KINDS[b % len(EDGE_GLOBAL_KINDS)]
+        q = rng.integers(0, 4, int(rng.integers(min(45, span), span + 1))).astype(np.int8)
+        t = _mutate(rng, q, int(rng.integers(0, 6)), 0)
+        w = int(rng.integers(1, 101))
+        if kind == "w=0":
+            w = 0
+        elif kind == "w=1":
+            t, w = _mutate(rng, t, 0, 1)[:tmax], 1
+        elif kind == "w>=qmax":
+            t = _mutate(rng, t, 0, int(rng.integers(1, 13)))[:tmax]
+            w = int(rng.integers(min(qmax, BAND_CAP), BAND_CAP + 1))
+        elif kind == "tlen=0":
+            t = t[:0]
+        elif kind == "one-base query":
+            q, t, w = q[:1], t[: int(rng.integers(1, 4))], int(rng.integers(2, 5))
+        elif kind == "full size":
+            q = rng.integers(0, 4, qmax).astype(np.int8)
+            t = np.concatenate([_mutate(rng, q, 3, 0), rng.integers(0, 4, tmax).astype(np.int8)])
+            t, w = t[:tmax], min(abs(tmax - qmax) + int(rng.integers(0, 8)), BAND_CAP)
+        else:
+            n = int(rng.integers(1, 13)) if kind.startswith("corner") else int(rng.integers(36, 41))
+            n = min(n, len(q) - 4)
+            at = int(rng.integers(2, len(q) - n - 1))
+            if kind == "insertion run" or (kind.startswith("corner") and b % 2):
+                t = np.delete(q, np.arange(at, at + n))       # the query holds n more bases
+            else:
+                q, t = np.delete(q, np.arange(at, at + n)), q
+            w = n if kind.startswith("corner") else n + int(rng.integers(0, 8))
+        qs.append(q)
+        ts.append(t)
+        ws.append(w)
+    return qs, ts, np.asarray(ws, np.int32)
+
+
 def on_device(dev, qs, ts, qmax, tmax, *per_problem):
     """The problems as the kernels take them, on ``dev``: (B, qmax) and
     (B, tmax) int8 codes padded with N, their lengths, then each

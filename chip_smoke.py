@@ -15,9 +15,16 @@ result line):
      Each kernel must equal its plain PyTorch version on the card exactly
      (integer outputs: tolerance 0) and the scalar ksw oracle
      (arachne_tpu_torch/align/ksw.py) on 256 problems (all 128 for the z
-     batches); both are timed with CUDA events, and each gets its bound,
+     batches); both are timed with CUDA events (``ms``: the wrapper's
+     calls in a row, host work between launches included) and the kernel
+     also by torch.profiler (``device_ms``: the card's own time per call,
+     the zeroing of an output included), and each gets its bound,
      the least time the card could take for the work these inputs need
-     (the problems: arachne_tpu_torch/ops/problems.py);
+     (the problems: arachne_tpu_torch/ops/problems.py).  K3 and K4 are
+     also held to their plain versions, untimed, on the edge problems
+     (w = 0, 1 and wider than the query, tlen = 0, one-base queries, the
+     corner cell on the band's edge, long indel runs) at 64 x 96 and 1024
+     x 1100, where a lane's strip is 2 and 32 columns wide instead of 6;
   then the library: a 2 Mbp genome, its index and 19,200 simulated
   linked-read pairs of 150 bp (indel rate 0.1); the native C++ host
   library must load;
@@ -234,7 +241,7 @@ def probe_and_build():
 def kernel_parity(dev):
     from arachne_tpu_torch.align import ksw
     from arachne_tpu_torch.config import MemOptions
-    from arachne_tpu_torch.device import cuda_ms
+    from arachne_tpu_torch.device import cuda_ms, device_ms
     from arachne_tpu_torch.ops.cuda_extend import extend_cuda
     from arachne_tpu_torch.ops.cuda_global import (
         global_score_cuda, global_z_cuda, traceback_cuda,
@@ -242,7 +249,7 @@ def kernel_parity(dev):
     from arachne_tpu_torch.ops.cuda_local import local_cuda
     from arachne_tpu_torch.ops.params import kernel_params
     from arachne_tpu_torch.ops.problems import (
-        MAIN, extend_problems, global_problems, local_problems, on_device,
+        MAIN, edge_global_problems, extend_problems, global_problems, local_problems, on_device,
     )
     from arachne_tpu_torch.ops.sw_extend import extend_batch_torch
     from arachne_tpu_torch.ops.sw_global import (
@@ -258,6 +265,11 @@ def kernel_parity(dev):
 
     def sample(B):
         return np.random.default_rng(99).choice(B, SAMPLE, replace=False)
+
+    def kernel_times(fn):
+        # ms: ten calls of the wrapper in a row, host work between the
+        # launches included; device_ms: the card's own time per call
+        return dict(ms=cuda_ms(fn, 10), device_ms=device_ms(fn, 10))
 
     # K1 -----------------------------------------------------------------
     seed, B, qmax, tmax = MAIN["K1"]
@@ -275,7 +287,7 @@ def kernel_parity(dev):
     require_oracle("K1", bad, SAMPLE)
     rows["K1"] = dict(
         err=err,
-        ms=cuda_ms(lambda: extend_cuda(*args, p.mat, **kw), 10),
+        **kernel_times(lambda: extend_cuda(*args, p.mat, **kw)),
         plain_ms=cuda_ms(lambda: extend_batch_torch(*args, p.mat, **kw), 1),
         cells=st["cells"], **bound(ops=st["cells"] * DP_INSTR_PER_CELL),
     )
@@ -302,7 +314,7 @@ def kernel_parity(dev):
     cells = int((args[2].long() * args[3].long().clamp(max=tmax)).sum())
     rows["K2"] = dict(
         err=err,
-        ms=cuda_ms(lambda: local_cuda(*args, p.mat, **kw), 10),
+        **kernel_times(lambda: local_cuda(*args, p.mat, **kw)),
         plain_ms=cuda_ms(lambda: local_sw_full_torch(*args, p.mat, **kw), 1),
         cells=cells, **bound(ops=cells * DP_INSTR_PER_CELL),
     )
@@ -322,7 +334,7 @@ def kernel_parity(dev):
     cells = band_cells(*(a.cpu().numpy() for a in args[2:]))
     rows["K3 score"] = dict(
         err=err,
-        ms=cuda_ms(lambda: global_score_cuda(*args, p.mat, **g), 10),
+        **kernel_times(lambda: global_score_cuda(*args, p.mat, **g)),
         plain_ms=cuda_ms(lambda: global_batch_torch(*args, p.mat, **g, want_z=False), 1),
         cells=cells, **bound(ops=cells * DP_INSTR_PER_CELL),
     )
@@ -359,20 +371,38 @@ def kernel_parity(dev):
         what = "score and CIGAR" if max_indel == 1 else "score"
         require_oracle(f"K3 z + K4, {label} ({what})", bad, B)
         log(f"   K4, {label}: {n_gapped}/{B} CIGARs carry I/D ops")
+    # the edge problems at two other strip widths, untimed
+    for e_qmax, e_tmax in ((64, 96), (1024, 1100)):
+        e_qs, e_ts, e_ws = edge_global_problems(e_qmax, 72, e_qmax, e_tmax)
+        e_args = on_device(dev, e_qs, e_ts, e_qmax, e_tmax, e_ws)
+        e_sc, e_z = global_z_cuda(*e_args, p.mat, **g)
+        want_sc, want_z = global_batch_torch(*e_args, p.mat, **g, want_z=True)
+        err_z = max(err_z, require_equal(f"K3 z, edge problems at {e_qmax} x {e_tmax}",
+                                         [(e_sc, want_sc), (e_z, want_z)]))
+        rows["K3 score"]["err"] = max(rows["K3 score"]["err"], require_equal(
+            f"K3 score, edge problems at {e_qmax} x {e_tmax}",
+            [(global_score_cuda(*e_args, p.mat, **g), want_sc)]))
+        for e_steps in (e_qmax + e_tmax, e_qmax + e_tmax - 13):
+            err_tb = max(err_tb, require_equal(
+                f"K4, edge problems at {e_qmax} x {e_tmax}",
+                zip(traceback_cuda(e_z, *e_args[2:], max_steps=e_steps),
+                    traceback_torch(e_z, *e_args[2:], max_steps=e_steps))))
+        log(f"   K3 score, K3 z, K4: equal their plain versions on 72 edge problems at "
+            f"{e_qmax} x {e_tmax}")
     # timed on the last (longer-indel) set; K3 z writes its whole (B, tmax,
     # qmax) byte array, K4 reads one z byte per step of each walk and
     # writes (max_steps, B) ops and two int32 per problem
     cells = band_cells(ql.cpu().numpy(), tl.cpu().numpy(), wt.cpu().numpy())
     rows["K3 z"] = dict(
         err=err_z,
-        ms=cuda_ms(lambda: global_z_cuda(*args, p.mat, **g), 10),
+        **kernel_times(lambda: global_z_cuda(*args, p.mat, **g)),
         plain_ms=cuda_ms(lambda: global_batch_torch(*args, p.mat, **g, want_z=True), 1),
         cells=cells, **bound(ops=cells * DP_INSTR_PER_CELL, nbytes=z_k.numel() + 4 * B),
     )
     walk = int((ops_k != 3).sum())
     rows["K4"] = dict(
         err=err_tb,
-        ms=cuda_ms(lambda: traceback_cuda(z_k, ql, tl, wt, max_steps=steps), 10),
+        **kernel_times(lambda: traceback_cuda(z_k, ql, tl, wt, max_steps=steps)),
         plain_ms=cuda_ms(lambda: traceback_torch(z_k, ql, tl, wt, max_steps=steps), 1),
         steps=walk, **bound(ops=walk * TRACEBACK_OPS_PER_STEP,
                             nbytes=walk + ops_k.numel() + 8 * B),
@@ -383,7 +413,8 @@ def kernel_parity(dev):
 
 def log_rows(rows):
     for name, r in rows.items():
-        log(f"   {name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+        on_card = f" ({r['device_ms']:.4f} ms on the card)" if r.get("device_ms") else ""
+        log(f"   {name}: kernel {r['ms']:.3f} ms{on_card}, plain {r['plain_ms']:.3f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max abs err {r['err']} "
             "(tolerance 0)")
 
@@ -735,7 +766,7 @@ def main() -> int:
                  "bound_ms": rows[key]["bound_ms"], "bound_by": rows[key]["bound_by"],
                  "library_ms": None},
                 **{k: v for k, v in rows[key].items()
-                   if k.endswith("rank_qps") or k in ("cells", "rank_rows", "steps")},
+                   if k.endswith("rank_qps") or k in ("cells", "rank_rows", "steps", "device_ms")},
             )
             for key, fn, src, rep in KERNELS
         ]

@@ -14,9 +14,11 @@ import numpy as np
 import pytest
 import torch
 
+from arachne_tpu_torch.align.ksw import MINUS_INF
 from arachne_tpu_torch.config import ArachneConfig, MemOptions
 from arachne_tpu_torch.ops.problems import (
-    extend_problems, global_problems, local_problems, on_device,
+    EDGE_GLOBAL_KINDS, edge_global_problems, extend_problems, global_problems, local_problems,
+    on_device,
 )
 
 OPT = MemOptions()
@@ -171,6 +173,65 @@ def test_global_kernels_match_plain(dev, max_indel):
     assert torch.equal(z, ref_z)
     ref_tb = traceback_torch(z, *args[2:], max_steps=512)
     assert all(torch.equal(a, b) for a, b in zip(tb, ref_tb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qmax,tmax", [(64, 96), (192, 320), (256, 400), (1024, 1100)])
+def test_global_kernel_edges_match_plain(dev, qmax, tmax):
+    """Strips of 2, 6, 8 and 32 columns on the edge set: w = 0, w = 1, a
+    band wider than the query, tlen = 0, one-base queries, problems as
+    large as qmax and tmax allow, the corner cell on the band's edge, and
+    runs of 36-40 deletions and insertions, which leave K4's 32 x 32
+    window by its top and by its left edge; neighbouring warps hold
+    different kinds.  The walk is checked whole, with a step count that is
+    no multiple of 32, and cut short after 37 steps."""
+    from arachne_tpu_torch.ops.cuda_global import (
+        global_score_cuda, global_z_cuda, traceback_cuda,
+    )
+    from arachne_tpu_torch.ops.sw_global import global_batch_torch, traceback_torch
+
+    B = 72
+    qs, ts, ws = edge_global_problems(51 + qmax, B, qmax, tmax)
+    args = on_device(dev, qs, ts, qmax, tmax, ws)
+    score = global_score_cuda(*args, mat_on(dev), **GAPS)
+    score_z, z = global_z_cuda(*args, mat_on(dev), **GAPS)
+    want_score, want_z = global_batch_torch(*args, mat_on(dev), **GAPS, want_z=True)
+    torch.cuda.synchronize()
+    assert torch.equal(score, want_score) and torch.equal(score_z, want_score)
+    assert torch.equal(z, want_z)
+    kinds = np.arange(B) % len(EDGE_GLOBAL_KINDS)
+    sc = want_score.cpu().numpy()
+    assert (sc[kinds == EDGE_GLOBAL_KINDS.index("tlen=0")] == MINUS_INF).all()
+    assert (sc[kinds == EDGE_GLOBAL_KINDS.index("corner on the band's edge")] > MINUS_INF).all()
+    for max_steps in (37, qmax + tmax - 13, qmax + tmax):
+        got = traceback_cuda(z, *args[2:], max_steps=max_steps)
+        want = traceback_torch(z, *args[2:], max_steps=max_steps)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), max_steps
+    ops = want[0].cpu().numpy()                   # the whole walks
+    for kind, op in (("deletion run", 2), ("insertion run", 1)):
+        for b in np.nonzero(kinds == EDGE_GLOBAL_KINDS.index(kind))[0]:
+            runs = "".join(map(str, ops[:, b])).split(str(op) * 33)
+            assert len(runs) > 1, (kind, b)       # more than 32 steps in a row
+
+
+@pytest.mark.cuda
+def test_global_kernel_odd_widths_match_plain(dev):
+    """A qmax that no store width divides and that the strips overhang
+    (qmax 100: strips of 4 cover 128 columns), so the direction bytes go
+    out one by one and stop at the row's end."""
+    from arachne_tpu_torch.ops.cuda_global import global_z_cuda, traceback_cuda
+    from arachne_tpu_torch.ops.sw_global import global_batch_torch, traceback_torch
+
+    for qmax, tmax in ((100, 131), (50, 77), (321, 333)):
+        qs, ts, ws = global_problems(61 + qmax, 41, qmax, tmax, 12)   # a block of one warp
+        args = on_device(dev, qs, ts, qmax, tmax, ws)
+        score, z = global_z_cuda(*args, mat_on(dev), **GAPS)
+        want_score, want_z = global_batch_torch(*args, mat_on(dev), **GAPS, want_z=True)
+        assert torch.equal(score, want_score) and torch.equal(z, want_z)
+        got = traceback_cuda(z, *args[2:], max_steps=qmax + tmax)
+        want = traceback_torch(z, *args[2:], max_steps=qmax + tmax)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.cuda

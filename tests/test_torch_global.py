@@ -18,6 +18,8 @@ from arachne_tpu.ops.sw_global import BatchGlobal as JaxBatchGlobal
 from arachne_tpu.ops.sw_global import global_batch_kernel, traceback_device
 from arachne_tpu_torch.config import MemOptions
 from arachne_tpu_torch.ops import sw_global
+from arachne_tpu_torch.ops.problems import edge_global_problems
+from arachne_tpu_torch.ops.sw_extend import lengths, padded_codes
 from arachne_tpu_torch.ops.sw_global import (
     BatchGlobal,
     decode_traceback_ops,
@@ -148,6 +150,31 @@ def test_edge_cases_match_jax(case):
     got_s, got_z = torch_global(arrs, True)
     np.testing.assert_array_equal(ref_s, got_s)
     np.testing.assert_array_equal(ref_z, got_z)
+
+
+@pytest.mark.parametrize("qmax,tmax", [(64, 96), (192, 320)])
+def test_edge_problem_set_matches_jax(qmax, tmax):
+    """The edge problems the card holds K3 and K4 to (w = 0, 1 and wider
+    than the query, tlen = 0, one-base queries, full-size problems, the
+    corner cell on the band's edge, runs of 36-40 indels): the plain
+    versions equal the JAX package's kernel and device walk on them."""
+    qs_l, ts_l, ws = edge_global_problems(70 + qmax, 27, qmax, tmax)
+    qlens, tlens = lengths(qs_l), lengths(ts_l)
+    arrs = (padded_codes(qs_l, qmax), padded_codes(ts_l, tmax), qlens, tlens, ws)
+    ref_s, jz = global_batch_kernel(
+        *[jnp.asarray(x) for x in arrs], jnp.asarray(MAT, jnp.int32), qmax, tmax,
+        OPT.o_del, OPT.e_del, OPT.o_ins, OPT.e_ins, want_z=True,
+    )
+    got_s, got_z = torch_global(arrs, True)
+    np.testing.assert_array_equal(np.asarray(ref_s), got_s)
+    np.testing.assert_array_equal(np.asarray(jz).transpose(2, 0, 1), got_z)
+    steps = qmax + tmax - 13
+    ref = traceback_device(jz, jnp.asarray(qlens), jnp.asarray(tlens), jnp.asarray(ws),
+                           qmax=qmax, tmax=tmax, max_steps=steps)
+    got = traceback_torch(torch.from_numpy(got_z),
+                          *[torch.from_numpy(x) for x in (qlens, tlens, ws)], max_steps=steps)
+    for name, r, g in zip(("ops", "fi", "fk"), ref, got):
+        np.testing.assert_array_equal(np.asarray(r), g.numpy(), err_msg=name)
 
 
 def test_batch_global_matches_jax_batcher_and_counts_fetches():

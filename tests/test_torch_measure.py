@@ -19,7 +19,7 @@ TINY = ["--genome-bp", "60000", "--barcodes", "2", "--molecules", "1", "--pairs"
 def test_trial_and_compare_on_cpu(tmp_path):
     out = tmp_path / "measure.json"
     res = measure.main(["--engine", "torch-cpu", "--trials", "1", "--compare", "oracle",
-                        "--out", str(out)] + TINY)
+                        "--bands", "--out", str(out)] + TINY)
     n = res["library"]["pairs"]
     assert n == 12
     (trial,) = res["trials"]
@@ -29,6 +29,10 @@ def test_trial_and_compare_on_cpu(tmp_path):
     assert cmp["engine"] == "oracle" and cmp["pairs"] == n
     assert cmp["identical"] and all(cmp["identical"].values())
     assert json.loads(out.read_text())["library"]["pairs"] == n
+    # only reads whose extension left a gap reach BatchGlobal
+    assert 1 <= sum(res["bands"].values()) <= 2 * n and all(int(w) >= 0 for w in res["bands"])
+    from arachne_tpu_torch.ops.sw_global import BatchGlobal
+    assert BatchGlobal.submit.__name__ == "submit"          # the recorder is gone
 
 
 def test_profile_needs_the_card():
