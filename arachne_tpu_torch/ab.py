@@ -1,23 +1,28 @@
-"""Time this checkout's DP kernels against another checkout's, on one card.
+"""Time this checkout's kernels against another checkout's, on one card.
 
-    python -m arachne_tpu_torch.ab PARENT [--kernels K1 K2] [--out FILE]
+    python -m arachne_tpu_torch.ab PARENT [--kernels K1 K2 "S1 pass 1" ...] [--out FILE]
 
 PARENT is the root of another checkout of the repo, for example the parent
 commit unpacked with ``mkdir -p build/ab_parent && git archive HEAD~1 |
 tar -x -C build/ab_parent``.  Its ``arachne_tpu_torch/ops/csrc`` is built
 as a second kernel library, whose C entry points must take the same
-arguments as this checkout's.  Each named kernel's wrapper is then called
-on the same inputs (``ops.problems.MAIN``, the main path's shapes, as
-``chip_smoke.py`` phase 2 checks them) with every launch routed to one
-library or the other: both must give equal outputs, and they are timed in
+arguments as this checkout's (a variant of a kernel, such as seed.cu
+with another SEED_GROUP, is timed as a copy of the tree with the constant
+edited).  Each named kernel's wrapper is then called on the same inputs
+with every launch routed to one library or the other: K1-K4 on
+``ops.problems.MAIN``, the main path's shapes, as ``chip_smoke.py`` phase 2
+checks them; S1 (pass 1 and pass 2), S3 and K5 on ``seeding_problems``,
+the device-seeded path's (one superbatch of a 2 Mbp genome's library; K5 on 2^20 rows of a
+GRCh38-sized table).  Both must give equal outputs, and they are timed in
 turns (parent, this, this, parent) for five rounds, each turn the mean of
 ten launches by CUDA events.  Those times hold the wrapper's host work too
 (checks, allocations, the launch), which is all they show once a kernel
 takes less than that: so each side's device time per call (the kernels'
 own, by torch.profiler, the zeroing of an output included) is measured as
 well, and the speedup is taken from it.  It prints one line per kernel
-with the medians, the card's name and power limit, and the result as JSON
-(also written to ``--out``).
+with the medians, each build's registers and spills for the seeding
+kernels, the card's name and power limit, and the result as JSON (also
+written to ``--out``).
 """
 
 from __future__ import annotations
@@ -25,7 +30,9 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import sys
+import tempfile
 from typing import List, Optional
 
 import numpy as np
@@ -40,14 +47,66 @@ ROUNDS = 5      # of parent, this, this, parent
 REPS = 10       # launches per turn
 
 
-def case(name: str, dev: torch.device, opt: MemOptions):
-    """(wrapper, args, kwargs) of kernel ``name`` on its MAIN problems."""
+# the seeding kernels' cases (``seeding_problems``)
+SEEDING = ("S1 pass 1", "S1 pass 2", "S3", "K5")
+
+
+def seeding_problems(dev, genome_bp=2_000_000, n_pairs=4096, wide_blocks=None,
+                     rank_rows=1 << 20, **library):
+    """The seeding kernels' inputs on ``dev``, as the device-seeded path
+    gives them: a genome of ``genome_bp`` bases (``measure.make_library``,
+    built with its index in a temporary directory; ``library`` passes it
+    other sizes) and the first ``n_pairs`` pairs of its reads, one superbatch
+    (8192 reads of 150 bp by default).  S1 pass 1 (pivots 0, min_intv 1),
+    S1 pass 2 (every job of pass 1's SMEMs in one launch, as
+    ``collect_seeds_device`` makes it) and S3 (``MemOptions`` defaults) at
+    buffers of ``seed_buffers(L)``; K5 on ``rank_rows`` uniform rows of a
+    synthetic wide table of ``wide_blocks`` blocks (GRCh38's size by
+    default).  Returns {name: args} of the wrappers ``fm_seed.smem_pass``,
+    ``fm_seed.pass3`` and ``fm_rank.occ4_device``, which their CUDA
+    launchers take as they are."""
+    from .index import FMIndex, load_index
+    from .measure import library_reads, make_library
+    from .ops.fm_rank import DeviceFMIndex
+    from .ops.fm_seed import pad_reads, pass1_seeds, pass2_inputs, seed_buffers, smem_pass
+    from .seeding_bench import GRCH38_BLOCKS, synthetic_table
+
+    opt = MemOptions()
+    with tempfile.TemporaryDirectory(prefix="seeding_problems_") as work:
+        ref, r1, r2, *_ = make_library(work, genome_bp, **library)
+        idx = FMIndex(*load_index(ref + ".arx.npz"))
+        reads = library_reads(r1, r2, n_pairs)
+    fm = DeviceFMIndex.from_host(idx, dev)
+    qs, qlens = pad_reads(reads, dev)
+    R, L = qs.shape
+    B = seed_buffers(L)
+    pass1 = (fm, qs, qlens, torch.zeros(R, dtype=torch.int32, device=dev),
+             torch.ones(R, dtype=torch.int32, device=dev), False, B, B)
+    out1, n1, ovf = (t.cpu().numpy() for t in smem_pass(*pass1))
+    _, jobs = pass1_seeds(out1, n1, ovf, len(reads), opt)
+    _, *job_args = pass2_inputs(jobs, qs, qlens)
+    wide = synthetic_table(dev, wide_blocks or GRCH38_BLOCKS)
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    ks = torch.randint(0, wide.seq_len, (rank_rows,), dtype=wide.idt, device=dev, generator=g)
+    return {"S1 pass 1": pass1, "S1 pass 2": (fm, *job_args, True, B, B),
+            "S3": (fm, qs, qlens, opt.min_seed_len, opt.max_mem_intv, B), "K5": (wide, ks)}
+
+
+def case(name: str, dev: torch.device, opt: MemOptions, seeding=None):
+    """(wrapper, args, kwargs) of kernel ``name`` on its MAIN problems, or
+    for a seeding kernel on ``seeding``, ``seeding_problems``' result."""
     from .ops.cuda_extend import extend_cuda
     from .ops.cuda_global import global_score_cuda, global_z_cuda, traceback_cuda
     from .ops.cuda_local import local_cuda
+    from .ops.cuda_rank import rank_cuda
+    from .ops.cuda_seed import pass3_cuda, smem_pass_cuda
     from .ops.params import kernel_params
     from .ops.sw_local import NEVER
 
+    if name in SEEDING:
+        fn = {"S3": pass3_cuda, "K5": rank_cuda}.get(name, smem_pass_cuda)
+        return fn, list(seeding[name]), {}
     p = kernel_params(opt, dev)
     g = p.gaps()
     seed, B, qmax, tmax = MAIN[name]
@@ -104,14 +163,32 @@ def compare(name: str, fn, args, kw, parent) -> dict:
                 speedup=dev["parent"] / dev["this"], runs=times)
 
 
-def main(argv: Optional[List[str]] = None) -> dict:
+def seed_kernel_resources(log: str) -> dict:
+    """{kernel: ptxas's registers and spill line} of the seeding kernels
+    (S1, S3, K5) in an nvcc log built with -Xptxas -v."""
+    out, entry = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            # the mangled template argument: i for int, x for long long
+            m = re.search(r"(smem_pass_kernel|pass3_kernel|rank_kernel)I([ix])", line)
+            entry = f"{m.group(1)}<{'int' if m.group(2) == 'i' else 'long long'}>" if m else None
+        elif entry and ("registers" in line or "spill" in line):
+            out.setdefault(entry, []).append(line.split(":", 1)[-1].strip())
+    return out
+
+
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m arachne_tpu_torch.ab", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("parent", help="root of the other checkout")
-    ap.add_argument("--kernels", nargs="+", default=["K1", "K2"], choices=list(MAIN))
+    ap.add_argument("--kernels", nargs="+", default=["K1", "K2"],
+                    choices=list(MAIN) + list(SEEDING))
     ap.add_argument("--out", default=None)
-    a = ap.parse_args(argv)
+    return ap
 
+
+def main(argv: Optional[List[str]] = None) -> dict:
+    a = parser().parse_args(argv)
     csrc = os.path.join(a.parent, "arachne_tpu_torch", "ops", "csrc")
     if not os.path.isdir(csrc):
         raise SystemExit(f"no kernel sources under {csrc}")
@@ -123,12 +200,19 @@ def main(argv: Optional[List[str]] = None) -> dict:
     print(f"parent kernels {info['path']} built in {info['seconds']:.1f} s", flush=True)
     opt = MemOptions()
     result = {"card": card, "rounds": ROUNDS, "reps": REPS, "kernels": {}}
+    if any(name in SEEDING for name in a.kernels):
+        result["resources"] = {side: seed_kernel_resources(str(i["log"]))
+                               for side, i in (("parent", info), ("this", build.BUILD_INFO))}
+        for side, res in result["resources"].items():
+            for k, lines in res.items():
+                print(f"{side} {k}: {'; '.join(lines)}", flush=True)
     with torch.cuda.device(dev):
+        seeding = (seeding_problems(dev) if any(name in SEEDING for name in a.kernels)
+                   else None)
         for name in a.kernels:
-            fn, args, kw = case(name, dev, opt)
-            shape = MAIN[name][1:]
-            r = dict(problems_qmax_tmax=list(shape),
-                     **compare(name, fn, args, kw, parent))
+            fn, args, kw = case(name, dev, opt, seeding)
+            shape = MAIN[name][1:] if name in MAIN else list(args[1].shape)
+            r = dict(shape=list(shape), **compare(name, fn, args, kw, parent))
             result["kernels"][name] = r
             print(f"{name} {'x'.join(map(str, shape))}: parent median {r['parent_ms']:.4f} ms "
                   f"{['%.4f' % t for t in r['runs']['parent']]}; this median "

@@ -47,22 +47,43 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def device_ms(fn, reps: int) -> Optional[float]:
-    """Mean milliseconds of device time per call of ``fn``, as
-    torch.profiler reports the kernels' own time, after one warm call; None
-    if the profiler saw no device time.  Unlike ``cuda_ms`` it leaves out
-    the gaps in which the card waits for the host to launch the next
-    kernel, which dominate a run of small launches."""
-    from torch.profiler import ProfilerActivity, profile
+# profiler runs that ``device_ms`` threw away because their device records
+# were not the same for every call, and the runs it makes at most
+lost_profiles = 0
+PROFILE_TRIES = 3
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+
+def device_ms(fn, reps: int) -> Optional[float]:
+    """Mean milliseconds of device time per call of ``fn`` over ``reps``
+    calls, as torch.profiler reports the kernels' own time; None if the
+    profiler saw no device time.  Unlike ``cuda_ms`` it leaves out the gaps
+    in which the card waits for the host to launch the next kernel, which
+    dominate a run of small launches.  A warm call comes first, in a
+    warm-up step of its own: the tracer comes up during it, and a launch
+    made just as tracing starts can go unrecorded.  Every call launches
+    the same kernels, so a run whose device records are still not a
+    multiple of ``reps`` lost some and would read low: it is thrown away
+    (counted in ``lost_profiles``) and made again, up to ``PROFILE_TRIES``
+    runs in all; None if none is whole."""
+    global lost_profiles
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
             fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages())
-    return us / reps / 1e3 if us > 0 else None
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        spans = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if spans and len(spans) % reps == 0:
+            return sum(spans) / reps / 1e3
+        lost_profiles += 1
+    return None
 
 
 def _first_line(cmd) -> Optional[str]:

@@ -81,6 +81,23 @@ def make_library(work, genome_bp=2_000_000, barcodes=320, molecules=3, pairs=20,
     return ref, r1, r2, n, t_index, time.perf_counter() - t0
 
 
+def library_reads(r1, r2, n_pairs):
+    """The first ``n_pairs`` pairs of a library's gzipped FASTQ files as
+    2 n code arrays, read 1 then read 2 of each pair."""
+    import gzip
+
+    from .align.pipeline import seq_to_codes
+
+    reads = []
+    with gzip.open(r1, "rt") as f1, gzip.open(r2, "rt") as f2:
+        for k, (l1, l2) in enumerate(zip(f1, f2)):
+            if k // 4 >= n_pairs:
+                break
+            if k % 4 == 1:
+                reads += [seq_to_codes(l1.strip()), seq_to_codes(l2.strip())]
+    return reads
+
+
 def align(engine, out, ref, r1, r2, threads):
     """One ``align --sam`` run; returns its RunStats."""
     from . import cli

@@ -226,6 +226,14 @@ def require(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name}: not contiguous")
 
 
+def require_aligned(t: torch.Tensor, name: str, nbytes: int) -> None:
+    """Raise unless ``t``'s data starts on a multiple of ``nbytes`` (kernels
+    that read it as vectors of that size; torch's allocations are aligned
+    far beyond, a view that starts inside one may not be)."""
+    if t.data_ptr() % nbytes:
+        raise ValueError(f"{name}: data at {t.data_ptr():#x}, not on {nbytes} bytes")
+
+
 def block_threads(qmax: int) -> int:
     """qmax rounded up to a warp; raises above 1024 columns, the widest
     query the DP kernels' 32 lanes cover with their widest strip (32)."""

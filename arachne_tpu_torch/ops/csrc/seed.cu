@@ -17,23 +17,59 @@
 // backward and take a backward step.  The backward step extends only the
 // carried intervals that exist (the reference extends all MAXC, masked).
 //
-// What bounds them on an H100: two dependent occ4 gathers (rank.cuh) per
-// forward step and per carried interval per backward step; with one read
-// per thread the warps wait on memory latency, and reads of a warp diverge.
-// The per-read buffers (curr, prev, the sweep's SMEMs) live in a global
-// workspace sized by the runtime MAXC and MAXS, interleaved across reads so
-// that a warp touching the same slot reads consecutive words.  Backward
-// steps swap curr and prev instead of copying.
+// What bounds them on an H100: a chain of dependent extends per read (about
+// 150 forward ones for a read of 150 bases, each needing the last), each a
+// round trip to the L2 for two occ4 queries (rank.cuh) and ~250
+// instructions of counting and bookkeeping.  A superbatch of 8192 reads is
+// only 256 warps, about one per SM partition, so nothing hides either and a
+// launch lasts as long as its slowest warp's chain.  The design makes each
+// link of the chain one round trip and keeps a warp's threads on one path:
+//   * the occ4 queries of a round are copied into shared memory with
+//     cp.async and waited for once (rank.cuh: the compiler may not sink a
+//     copy to its use, as it sinks an ordinary load into the branch that
+//     uses it);
+//   * S1 runs in rounds: a forward step's extend, or the next SEED_GROUP
+//     carried intervals of a backward step, whose copies all go out before
+//     the reference's bookkeeping runs over them in order.  Both kinds of
+//     round go through the same code, so that a warp whose threads are in
+//     different phases pays one round, not a forward and a backward one, and
+//     a thread goes on to its next round as soon as its last one is done;
+//   * a round issues its copies before it reads the query's code byte,
+//     which they do not need (a terminal step's copies are dropped);
+//   * a run-time index into a small array is a chain of selects (pick), so
+//     that no array goes to local memory.
+// What is left is the counting: a warp iteration counts the largest group
+// among its threads one extend after another, so groups larger than two
+// cost more than the round trips they save (PERF.md).  The per-read buffers
+// (two of carried intervals, the sweep's SMEMs) live in a global workspace
+// sized by the run-time MAXC and MAXS, interleaved across reads so that a
+// warp touching the same slot moves consecutive chunks.  The two interval
+// buffers swap roles: a forward sweep pushes into one, the backward steps
+// read it in reverse (no copy) and write the next step's intervals into the
+// other.
 #include <cuda_runtime.h>
 
 #include "rank.cuh"
 
 namespace {
 
+constexpr int SEED_GROUP = 2;     // carried intervals per round
+constexpr int SEED_THREADS = 32;  // reads per block
+
 constexpr int PH_PIVOT = 0;   // looking for the next pivot
 constexpr int PH_FWD = 1;     // forward sweep
 constexpr int PH_BACK = 2;    // backward sweep
 constexpr int PH_DONE = 3;
+
+// a[i] for a run-time i, by selects: indexing a register array with a
+// run-time index would put the array in local memory
+template <typename T, int N>
+__device__ __forceinline__ T pick(const T (&a)[N], int i) {
+    T v = a[0];
+#pragma unroll
+    for (int t = 1; t < N; ++t) v = i == t ? a[t] : v;
+    return v;
+}
 
 template <typename T>
 struct Tables {
@@ -43,25 +79,46 @@ struct Tables {
     T primary;
     T seq_len;
 
-    __device__ void occ4(T k, T (&out)[4]) const {
-        arachne_occ4<T>(occ, words, L2, primary, seq_len, k, out);
+    // chunks of the stage one extend takes
+    static constexpr int CHUNKS = 2 * arachne_occ4_chunks<T>();
+
+    // Issue the copies of one bwt_extend (bwt.c:262-275) from edge row xb
+    // of an interval of size x2 (occ4 at xb - 1 and at xb - 1 + x2) into
+    // chunks q0 .. q0 + CHUNKS - 1.
+    __device__ __forceinline__ void issue(T xb, T x2, const ArachneStage& st, int q0) const {
+        arachne_occ4_stage<T>(occ, words, primary, seq_len, xb - 1, st, q0);
+        arachne_occ4_stage<T>(occ, words, primary, seq_len, xb - 1 + x2, st, q0 + CHUNKS / 2);
     }
 
-    // bwt_extend (bwt.c:262-275) of interval (x0, x1, x2), keeping only
-    // the result for base c: forward for is_back false, else backward.
-    __device__ void extend(T x0, T x1, T x2, bool is_back, int c,
-                           T& r0, T& r1, T& rs) const {
-        const T xb = is_back ? x0 : x1;
+    // The extend's result for base c, once its copies have arrived:
+    // forward (is_back false, xb = l, xo = k) or backward (xb = k, xo = l).
+    __device__ __forceinline__ void finish(const ArachneStage& st, int q0, T xb, T x2, T xo,
+                                           bool is_back, int c, T& r0, T& r1, T& rs) const {
         T tk[4], tl[4];
-        occ4(xb - 1, tk);
-        occ4(xb - 1 + x2, tl);
+        arachne_occ4_count<T>(
+            arachne_occ4_staged<T>(st, q0, arachne_occ4_ref<T>(primary, seq_len, xb - 1)),
+            L2, seq_len, tk);
+        arachne_occ4_count<T>(
+            arachne_occ4_staged<T>(st, q0 + CHUNKS / 2,
+                                   arachne_occ4_ref<T>(primary, seq_len, xb - 1 + x2)),
+            L2, seq_len, tl);
         const T hit = (xb <= primary && xb + x2 - 1 >= primary) ? 1 : 0;
-        T o = (is_back ? x1 : x0) + hit;
-        for (int d = 3; d > c; --d) o += tl[d] - tk[d];
-        const T b = L2[c] + 1 + tk[c];
+        T o = xo + hit;
+#pragma unroll
+        for (int d = 1; d < 4; ++d) o += d > c ? tl[d] - tk[d] : (T)0;
+        const T kc = pick(tk, c);
+        const T b = pick(L2, c) + 1 + kc;
         r0 = is_back ? b : o;
         r1 = is_back ? o : b;
-        rs = tl[c] - tk[c];
+        rs = pick(tl, c) - kc;
+    }
+
+    // the interval of base c alone: k, l and s of bwt_set_intv
+    __device__ __forceinline__ void base_interval(int c, T (&ik)[4]) const {
+        const T lc = pick(L2, c);
+        ik[0] = lc + 1;
+        ik[1] = pick(L2, 3 - c) + 1;
+        ik[2] = pick(L2, c + 1) - lc;
     }
 };
 
@@ -86,14 +143,60 @@ struct Slots {
     __device__ T& operator()(int s, int f) const { return p[((size_t)s * F + f) * stride]; }
 };
 
+// One read's buffer of intervals (k, l, s, info) in the workspace: slot s
+// at p[s * stride * 4], its four values side by side (one 16-byte chunk for
+// int, two for long long, ``half`` chunks apart), the reads' slots
+// interleaved so that a warp touching one slot moves consecutive chunks.
+// With stride 0 and half the block's width, the same accessors read and
+// write a thread's chunks in the stage.
+template <typename T>
+struct Intervals {
+    static constexpr int CHUNKS = sizeof(T) == 4 ? 1 : 2;
+    T* p;
+    size_t stride;
+    size_t half;
+
+    __device__ __forceinline__ uint4* at(int s) const {
+        return reinterpret_cast<uint4*>(p + (size_t)s * stride * 4);
+    }
+    __device__ __forceinline__ void get(int s, T (&it)[4]) const {
+        const uint4 a = at(s)[0];
+        if constexpr (sizeof(T) == 4) {
+            it[0] = (int)a.x; it[1] = (int)a.y; it[2] = (int)a.z; it[3] = (int)a.w;
+        } else {
+            const uint4 b = at(s)[half];
+            it[0] = arachne_join64(a.x, a.y); it[1] = arachne_join64(a.z, a.w);
+            it[2] = arachne_join64(b.x, b.y); it[3] = arachne_join64(b.z, b.w);
+        }
+    }
+    __device__ __forceinline__ void put(int s, T a, T b, T c, T d) const {
+        uint4* q = at(s);
+        if constexpr (sizeof(T) == 4) {
+            q[0] = make_uint4((uint32_t)a, (uint32_t)b, (uint32_t)c, (uint32_t)d);
+        } else {
+            q[0] = make_uint4((uint32_t)a, (uint32_t)((unsigned long long)a >> 32),
+                              (uint32_t)b, (uint32_t)((unsigned long long)b >> 32));
+            q[half] = make_uint4((uint32_t)c, (uint32_t)((unsigned long long)c >> 32),
+                                 (uint32_t)d, (uint32_t)((unsigned long long)d >> 32));
+        }
+    }
+};
+
+// A thread's stage in S1: a round's copies (two queries an interval of the
+// group), then the round's intervals.
+template <typename T, int G>
+__host__ __device__ constexpr int stage_chunks() {
+    return G * (2 * arachne_occ4_chunks<T>() + Intervals<T>::CHUNKS);
+}
+
 // q[x], or 4 (N) outside [0, qlen)
 template <typename T>
 __device__ __forceinline__ int code_at(const int8_t* q, T qlen, T x) {
     return (x >= 0 && x < qlen) ? (int)q[x] : 4;
 }
 
-template <typename T>
-__global__ void smem_pass_kernel(
+template <typename T, int G>
+__global__ void __launch_bounds__(SEED_THREADS) smem_pass_kernel(
     const T* __restrict__ occ, const uint32_t* __restrict__ words,
     const T* __restrict__ L2, long long primary, long long seq_len,
     const int8_t* __restrict__ qs, const int* __restrict__ qlens,
@@ -104,47 +207,88 @@ __global__ void smem_pass_kernel(
     const int r = blockIdx.x * blockDim.x + threadIdx.x;
     if (r >= R) return;
     const Tables<T> fm = load_tables<T>(occ, words, L2, primary, seq_len);
+    extern __shared__ uint4 stage_mem[];
+    const ArachneStage st{stage_mem + threadIdx.x, (int)blockDim.x};
     const int8_t* q = qs + (size_t)r * L;
     const T qlen = qlens[r];
     const T min_intv = min_intvs[r];
     T* o = out + (size_t)r * MAXS * 5;
 
-    Slots<T, 4> curr{ws + r, (size_t)R};
-    Slots<T, 4> prev{ws + (size_t)R * 4 * MAXC + r, (size_t)R};
+    // curr receives intervals; prev holds those a backward step extends,
+    // in reverse slot order right after a forward sweep (prev_rev)
+    constexpr int CH = Tables<T>::CHUNKS;
+    constexpr int IC = Intervals<T>::CHUNKS;
+    Intervals<T> curr{ws + (size_t)r * 4, (size_t)R, 1};
+    Intervals<T> prev{ws + (size_t)R * 4 * MAXC + (size_t)r * 4, (size_t)R, 1};
     // this sweep's SMEMs, qb descending
     const Slots<T, 5> mem{ws + (size_t)R * 8 * MAXC + r, (size_t)R};
     int curr_n = 0, prev_n = 0, mem_n = 0, n_out = 0;
-    bool ovf = false;
+    bool prev_rev = false, ovf = false;
     int phase = PH_PIVOT;
     T x = pivots0[r];
     T pivot = x;
     T i = 0;
     T ik[4] = {0, 0, 0, 0};   // k, l, s, info
+    // the backward step under way: its base, the next carried interval to
+    // extend, the intervals it has kept so far and the last one's size
+    int cb = 4;
+    bool c_ok = false;
+    int j0 = 0, ncurr = 0;
+    T last_s = -1;
+    T last_qb = 0;     // qb of this sweep's last SMEM (mem(mem_n - 1, 3))
+    T last_info = 0;   // info of the sweep's last interval pushed
 
     auto push_curr = [&](T a, T b, T s, T info) {
         if (curr_n >= MAXC) {
             ovf = true;
         } else {
-            curr(curr_n, 0) = a; curr(curr_n, 1) = b;
-            curr(curr_n, 2) = s; curr(curr_n, 3) = info;
+            curr.put(curr_n, a, b, s, info);
+            last_info = info;
             ++curr_n;
         }
     };
+    auto begin_back_step = [&]() {
+        cb = code_at(q, qlen, i);
+        c_ok = i >= 0 && cb < 4;
+        j0 = 0;
+        ncurr = 0;
+        last_s = -1;
+    };
+    // end of a forward sweep: prev = curr read in reverse, the next pivot
+    // is the last push's info
+    auto turn_back = [&]() {
+        x = last_info;   // curr(min(curr_n, MAXC) - 1, 3): a sweep pushes at least once
+        const Intervals<T> tmp = prev;
+        prev = curr;
+        curr = tmp;
+        prev_n = curr_n;
+        prev_rev = true;
+        i = pivot - 1;
+        phase = PH_BACK;
+        begin_back_step();
+    };
 
+    // the round's g-th interval in the stage, after the copies' chunks
+    auto stashed = [&](int g) {
+        return Intervals<T>{reinterpret_cast<T*>(st.at(G * CH + g * IC)), 0,
+                            (size_t)st.stride};
+    };
     const int cap = 16 * L + 64;
-    for (int step = 0; step < cap && phase != PH_DONE; ++step) {
-        // ---- pivot: skip Ns, finish at the end, or start a forward sweep
-        if (phase == PH_PIVOT) {
+    int step = 0;
+    while (true) {
+        // ---- what needs no rank query: pivots (a step each when an N is
+        // skipped or the read ends; else the step goes on forward)
+        while (phase == PH_PIVOT && step < cap) {
             pivot = x;
             const int c = code_at(q, qlen, x);
             if (x >= qlen) {
                 phase = PH_DONE;
+                ++step;
             } else if (c >= 4) {
                 x += 1;
+                ++step;
             } else {
-                ik[0] = fm.L2[c] + 1;
-                ik[1] = fm.L2[3 - c] + 1;
-                ik[2] = fm.L2[c + 1] - fm.L2[c];
+                fm.base_interval(c, ik);
                 ik[3] = x + 1;
                 i = x + 1;
                 curr_n = 0;
@@ -152,103 +296,131 @@ __global__ void smem_pass_kernel(
                 phase = PH_FWD;
             }
         }
-        // ---- one forward step
-        if (phase == PH_FWD) {
-            const int ci = code_at(q, qlen, i);
-            const bool terminal = i >= qlen || ci >= 4;
-            bool to_back = terminal;
-            if (terminal) {
-                push_curr(ik[0], ik[1], ik[2], ik[3]);
-            } else {
-                T n0, n1, ns;
-                fm.extend(ik[0], ik[1], ik[2], false, 3 - ci, n0, n1, ns);
-                const bool changed = ns != ik[2];
-                if (changed) push_curr(ik[0], ik[1], ik[2], ik[3]);
-                if (changed && ns < min_intv) {
-                    to_back = true;   // too small
+        if (phase == PH_DONE || step >= cap) break;
+
+        // ---- one round: the forward step's extend, or the next group of
+        // up to G carried intervals of the backward step.  Both go through
+        // the same code, so that a warp whose threads are in different
+        // phases pays one round, not a forward and a backward one.
+        const bool fwd = phase == PH_FWD;
+        const int n = fwd ? 1 : min(G, prev_n - j0);
+        // the round's intervals, all loaded at once; a forward step's
+        // extends from l, a backward one's from k with size >= 0; then
+        // every copy of the round, whatever the base; the intervals wait in
+        // the stage, after the copies' chunks, for the count loop
+        T its[G][4];
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+            if (g < n) {
+                if (fwd) {
+                    for (int f = 0; f < 4; ++f) its[g][f] = ik[f];
                 } else {
-                    ik[0] = n0; ik[1] = n1; ik[2] = ns; ik[3] = i + 1;
-                    i += 1;
-                    if (i >= qlen) {   // reached the end: push the final interval
-                        push_curr(ik[0], ik[1], ik[2], ik[3]);
-                        to_back = true;
-                    }
+                    prev.get(prev_rev ? prev_n - 1 - (j0 + g) : j0 + g, its[g]);
                 }
-            }
-            if (to_back) {
-                // prev = curr reversed; the next pivot is the last push's info
-                const int last = min(max(curr_n - 1, 0), MAXC - 1);
-                x = curr(last, 3);
-                for (int t = 0; t < curr_n; ++t)
-                    for (int f = 0; f < 4; ++f) prev(t, f) = curr(curr_n - 1 - t, f);
-                prev_n = curr_n;
-                i = pivot - 1;
-                phase = PH_BACK;
             }
         }
-        // ---- one backward step over the carried intervals
-        if (phase == PH_BACK) {
-            const int cb = code_at(q, qlen, i);
-            const bool c_ok = i >= 0 && cb < 4;
-            int ncurr = 0;        // the new intervals go to curr
-            T last_s = -1;
-            for (int j = 0; j < prev_n; ++j) {
-                const T pj[4] = {prev(j, 0), prev(j, 1), prev(j, 2), prev(j, 3)};
-                T nb0 = 0, nb1 = 0, nbs = 0;
-                bool keep = true;
-                if (c_ok) {
-                    fm.extend(pj[0], pj[1], pj[2] > 0 ? pj[2] : 0, true, cb, nb0, nb1, nbs);
-                    keep = nbs < min_intv;
-                }
-                if (keep) {
-                    // an SMEM ends here unless a longer one already covers it
-                    const bool no_contain =
-                        mem_n == 0 || i + 1 < mem(min(mem_n - 1, MAXS - 1), 3);
-                    if (ncurr == 0 && no_contain) {
-                        if (mem_n >= MAXS) {
-                            ovf = true;
-                        } else {
-                            mem(mem_n, 0) = pj[0]; mem(mem_n, 1) = pj[1];
-                            mem(mem_n, 2) = pj[2]; mem(mem_n, 3) = i + 1;
-                            mem(mem_n, 4) = pj[3];
-                            ++mem_n;
-                        }
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+            if (g < n) {
+                const T (&it)[4] = its[g];
+                fm.issue(fwd ? it[1] : it[0], fwd || it[2] > 0 ? it[2] : 0, st, g * CH);
+                stashed(g).put(0, it[0], it[1], it[2], it[3]);
+            }
+        }
+        const int ci = fwd ? code_at(q, qlen, i) : cb;
+        arachne_cp_wait();
+        const bool terminal = fwd && (i >= qlen || ci >= 4);
+        const bool c_ok_now = fwd ? !terminal : c_ok;
+        const int c = fwd ? 3 - (ci & 3) : (cb & 3);
+        bool to_back = fwd;
+#pragma unroll 1
+        for (int g = 0; g < n; ++g) {
+            T it[4];
+            stashed(g).get(0, it);
+            const T x2 = fwd || it[2] > 0 ? it[2] : 0;
+            T n0 = 0, n1 = 0, ns = 0;
+            fm.finish(st, g * CH, fwd ? it[1] : it[0], x2, fwd ? it[0] : it[1], !fwd, c,
+                      n0, n1, ns);
+            if (fwd) {
+                // ---- the forward step
+                if (terminal) {
+                    push_curr(ik[0], ik[1], ik[2], ik[3]);
+                } else {
+                    const bool changed = ns != ik[2];
+                    if (changed) push_curr(ik[0], ik[1], ik[2], ik[3]);
+                    if (!(changed && ns < min_intv)) {   // not too small: advance
+                        ik[0] = n0; ik[1] = n1; ik[2] = ns; ik[3] = i + 1;
+                        i += 1;
+                        to_back = i >= qlen;
+                        if (to_back)   // reached the end: push the final interval
+                            push_curr(ik[0], ik[1], ik[2], ik[3]);
                     }
-                } else if (ncurr == 0 || nbs != last_s) {
-                    if (ncurr >= MAXC) {
+                }
+                continue;
+            }
+            // ---- a carried interval of the backward step, in order
+            const bool keep = !c_ok_now || ns < min_intv;
+            if (keep) {
+                // an SMEM ends here unless a longer one already covers it
+                const bool no_contain = mem_n == 0 || i + 1 < last_qb;
+                if (ncurr == 0 && no_contain) {
+                    if (mem_n >= MAXS) {
                         ovf = true;
                     } else {
-                        curr(ncurr, 0) = nb0; curr(ncurr, 1) = nb1;
-                        curr(ncurr, 2) = nbs; curr(ncurr, 3) = pj[3];
-                        ++ncurr;
+                        mem(mem_n, 0) = it[0]; mem(mem_n, 1) = it[1];
+                        mem(mem_n, 2) = it[2]; mem(mem_n, 3) = i + 1;
+                        mem(mem_n, 4) = it[3];
+                        ++mem_n;
+                        last_qb = i + 1;
                     }
-                    last_s = nbs;
                 }
-            }
-            if (ncurr != 0 && i >= 0) {
-                const Slots<T, 4> tmp = prev;   // the new intervals become prev
-                prev = curr;
-                curr = tmp;
-                prev_n = ncurr;
-                i -= 1;
-            } else {
-                // sweep done: append its SMEMs in ascending qb, as far as
-                // they fit
-                for (int t = 0; t < mem_n && n_out + t < MAXS; ++t)
-                    for (int f = 0; f < 5; ++f)
-                        o[(size_t)(n_out + t) * 5 + f] = mem(mem_n - 1 - t, f);
-                if (n_out + mem_n > MAXS) ovf = true;
-                n_out = min(n_out + mem_n, MAXS);
-                phase = single_sweep ? PH_DONE : PH_PIVOT;
+            } else if (ncurr == 0 || ns != last_s) {
+                if (ncurr >= MAXC) {
+                    ovf = true;
+                } else {
+                    curr.put(ncurr, n0, n1, ns, it[3]);
+                    ++ncurr;
+                }
+                last_s = ns;
             }
         }
+        if (fwd) {
+            // turning back, the step goes on with its backward part
+            if (to_back)
+                turn_back();
+            else
+                ++step;
+            continue;
+        }
+        j0 += max(n, 0);
+        if (j0 < prev_n) continue;   // more groups in this step
+        if (ncurr != 0 && i >= 0) {
+            // the new intervals become prev, in order
+            const Intervals<T> tmp = prev;
+            prev = curr;
+            curr = tmp;
+            prev_n = ncurr;
+            prev_rev = false;
+            i -= 1;
+            begin_back_step();
+        } else {
+            // sweep done: append its SMEMs in ascending qb, as far as they
+            // fit
+            for (int t = 0; t < mem_n && n_out + t < MAXS; ++t)
+                for (int f = 0; f < 5; ++f)
+                    o[(size_t)(n_out + t) * 5 + f] = mem(mem_n - 1 - t, f);
+            if (n_out + mem_n > MAXS) ovf = true;
+            n_out = min(n_out + mem_n, MAXS);
+            phase = single_sweep ? PH_DONE : PH_PIVOT;
+        }
+        ++step;
     }
     out_n[r] = (T)n_out;
     overflow[r] = ovf;
 }
 
 template <typename T>
-__global__ void pass3_kernel(
+__global__ void __launch_bounds__(SEED_THREADS) pass3_kernel(
     const T* __restrict__ occ, const uint32_t* __restrict__ words,
     const T* __restrict__ L2, long long primary, long long seq_len,
     const int8_t* __restrict__ qs, const int* __restrict__ qlens,
@@ -258,12 +430,14 @@ __global__ void pass3_kernel(
     const int r = blockIdx.x * blockDim.x + threadIdx.x;
     if (r >= R) return;
     const Tables<T> fm = load_tables<T>(occ, words, L2, primary, seq_len);
+    extern __shared__ uint4 stage_mem[];
+    const ArachneStage st{stage_mem + threadIdx.x, (int)blockDim.x};
     const int8_t* q = qs + (size_t)r * L;
     const T qlen = qlens[r];
     T* o = out + (size_t)r * MAXS * 5;
 
     T x = 0, i = 0;
-    T ik[3] = {0, 0, 0};
+    T ik[4] = {0, 0, 0, 0};   // k, l, s (and an unused info slot)
     bool scanning = false, done = false, ovf = false;
     int n_out = 0;
     const int cap = 8 * L + 64;
@@ -276,22 +450,23 @@ __global__ void pass3_kernel(
             } else if (cx >= 4) {
                 x += 1;
             } else {
-                ik[0] = fm.L2[cx] + 1;
-                ik[1] = fm.L2[3 - cx] + 1;
-                ik[2] = fm.L2[cx + 1] - fm.L2[cx];
+                fm.base_interval(cx, ik);
                 i = x + 1;
                 scanning = true;
             }
         }
-        // scanning: one forward step
+        // scanning: one forward step, its copies issued before the code
+        // at i is read
         if (scanning) {
+            fm.issue(ik[1], ik[2], st, 0);
             const int ci = code_at(q, qlen, i);
+            arachne_cp_wait();
             const bool at_end = i >= qlen;
             const bool hit_n = !at_end && ci >= 4;
             bool emit = false;
             if (!at_end && !hit_n) {
                 T n0, n1, ns;
-                fm.extend(ik[0], ik[1], ik[2], false, 3 - ci, n0, n1, ns);
+                fm.finish(st, 0, ik[1], ik[2], ik[0], false, 3 - ci, n0, n1, ns);
                 emit = ns < (T)max_intv && i - x >= (T)min_seed_len;
                 if (emit && ns > 0) {
                     if (n_out >= MAXS) {
@@ -317,14 +492,28 @@ __global__ void pass3_kernel(
     overflow[r] = ovf;
 }
 
-constexpr int SEED_THREADS = 64;
+// Launch kernel k (S1 or S3) with the stage it needs: ``chunks`` 16-byte
+// chunks a thread.  Above 48 KB of shared memory a kernel must opt in
+// first.
+template <typename K, typename... A>
+int launch_staged(K kernel, int chunks, int R, cudaStream_t s, A... args) {
+    const size_t smem = (size_t)SEED_THREADS * chunks * sizeof(uint4);
+    if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    kernel<<<(R + SEED_THREADS - 1) / SEED_THREADS, SEED_THREADS, smem, s>>>(args...);
+    return (int)cudaGetLastError();
+}
 
 }  // namespace
 
 // qs (R, L) int8 codes; qlens, pivots0, min_intvs (R,) int32; ws a
 // workspace of R * (8 * MAXC + 5 * MAXS) elements, out (R, MAXS, 5) and
 // out_n (R,), all in the tables' row type (int64 when wide != 0); overflow
-// (R,) bool.  out must be zeroed: only the SMEMs found are written.
+// (R,) bool.  out must be zeroed: only the SMEMs found are written.  occ
+// and words must start on 16 bytes (the launchers check it).
 extern "C" int arachne_smem_pass(
     const void* occ, const void* words, const void* L2, long long primary,
     long long seq_len, int wide, const void* qs, const void* qlens,
@@ -333,22 +522,20 @@ extern "C" int arachne_smem_pass(
 {
     if (R <= 0) return 0;
     if (MAXC < 1 || MAXS < 1) return (int)cudaErrorInvalidValue;
-    const int blocks = (R + SEED_THREADS - 1) / SEED_THREADS;
     cudaStream_t s = (cudaStream_t)stream;
-    if (wide) {
-        smem_pass_kernel<long long><<<blocks, SEED_THREADS, 0, s>>>(
+    if (wide)
+        return launch_staged(
+            smem_pass_kernel<long long, SEED_GROUP>, stage_chunks<long long, SEED_GROUP>(), R, s,
             (const long long*)occ, (const uint32_t*)words, (const long long*)L2, primary,
             seq_len, (const int8_t*)qs, (const int*)qlens, (const int*)pivots0,
             (const int*)min_intvs, single_sweep, R, L, MAXC, MAXS, (long long*)ws,
             (long long*)out, (long long*)out_n, (bool*)overflow);
-    } else {
-        smem_pass_kernel<int><<<blocks, SEED_THREADS, 0, s>>>(
-            (const int*)occ, (const uint32_t*)words, (const int*)L2, primary, seq_len,
-            (const int8_t*)qs, (const int*)qlens, (const int*)pivots0,
-            (const int*)min_intvs, single_sweep, R, L, MAXC, MAXS, (int*)ws, (int*)out,
-            (int*)out_n, (bool*)overflow);
-    }
-    return (int)cudaGetLastError();
+    return launch_staged(
+        smem_pass_kernel<int, SEED_GROUP>, stage_chunks<int, SEED_GROUP>(), R, s,
+        (const int*)occ, (const uint32_t*)words, (const int*)L2, primary, seq_len,
+        (const int8_t*)qs, (const int*)qlens, (const int*)pivots0,
+        (const int*)min_intvs, single_sweep, R, L, MAXC, MAXS, (int*)ws, (int*)out,
+        (int*)out_n, (bool*)overflow);
 }
 
 extern "C" int arachne_seed_pass3(
@@ -359,18 +546,16 @@ extern "C" int arachne_seed_pass3(
 {
     if (R <= 0) return 0;
     if (MAXS < 1) return (int)cudaErrorInvalidValue;
-    const int blocks = (R + SEED_THREADS - 1) / SEED_THREADS;
     cudaStream_t s = (cudaStream_t)stream;
-    if (wide) {
-        pass3_kernel<long long><<<blocks, SEED_THREADS, 0, s>>>(
+    if (wide)
+        return launch_staged(
+            pass3_kernel<long long>, 2 * arachne_occ4_chunks<long long>(), R, s,
             (const long long*)occ, (const uint32_t*)words, (const long long*)L2, primary,
             seq_len, (const int8_t*)qs, (const int*)qlens, min_seed_len, max_intv, R, L,
             MAXS, (long long*)out, (long long*)out_n, (bool*)overflow);
-    } else {
-        pass3_kernel<int><<<blocks, SEED_THREADS, 0, s>>>(
-            (const int*)occ, (const uint32_t*)words, (const int*)L2, primary, seq_len,
-            (const int8_t*)qs, (const int*)qlens, min_seed_len, max_intv, R, L, MAXS,
-            (int*)out, (int*)out_n, (bool*)overflow);
-    }
-    return (int)cudaGetLastError();
+    return launch_staged(
+        pass3_kernel<int>, 2 * arachne_occ4_chunks<int>(), R, s,
+        (const int*)occ, (const uint32_t*)words, (const int*)L2, primary, seq_len,
+        (const int8_t*)qs, (const int*)qlens, min_seed_len, max_intv, R, L, MAXS,
+        (int*)out, (int*)out_n, (bool*)overflow);
 }

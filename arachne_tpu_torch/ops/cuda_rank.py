@@ -13,7 +13,8 @@ from . import build
 
 def check_tables(name: str, fm, dev: torch.device) -> int:
     """Raise unless fm's tables are contiguous on ``dev`` with one row dtype
-    (int32 or int64); returns 1 for wide (int64) tables, else 0."""
+    (int32 or int64), occ and words starting on 16 bytes (rank.cuh reads
+    them as 16-byte vectors); returns 1 for wide (int64) tables, else 0."""
     if dev.type != "cuda":
         raise ValueError(f"{name}: tensors on {dev}, expected a CUDA device")
     idt = fm.occ.dtype
@@ -22,6 +23,8 @@ def check_tables(name: str, fm, dev: torch.device) -> int:
     build.require(fm.occ, "occ", idt, (fm.occ.shape[0], 4), dev)
     build.require(fm.words, "words", torch.int32, (fm.words.shape[0],), dev)
     build.require(fm.L2, "L2", idt, (5,), dev)
+    build.require_aligned(fm.occ, "occ", 16)
+    build.require_aligned(fm.words, "words", 16)
     return int(idt == torch.int64)
 
 

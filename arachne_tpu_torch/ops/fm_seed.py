@@ -355,17 +355,18 @@ def pass1_seeds(out1, n1, overflow, n: int, opt: MemOptions):
     return seeds, jobs
 
 
-def pass2_round(jobs: List[List[Tuple[int, int]]], qlens: np.ndarray, round_i: int):
-    """Pivots and min_intvs (R,) int32 of one pass-2 round: each read's
-    job of that rank; a read without one gets pivot qlen, so it is done at
-    once."""
-    R = len(qlens)
-    pivots = qlens.astype(np.int32).copy()
-    minis = np.ones(R, np.int32)
-    for r, jl in enumerate(jobs):
-        if round_i < len(jl):
-            pivots[r], minis[r] = jl[round_i]
-    return pivots, minis
+def pass2_inputs(jobs: List[List[Tuple[int, int]]], qs: torch.Tensor, qlens: torch.Tensor):
+    """Pass 2 as one S1 launch: one row per job, the reads' jobs in order
+    and each read's in its own order.  Returns read_of (J,) int64 numpy,
+    the job's read, then qs (J, L), qlens, pivots and min_intvs (J,)
+    int32, gathered on qs's device."""
+    read_of = np.array([r for r, jl in enumerate(jobs) for _ in jl], np.int64)
+    piv = np.array([[p, mi] for jl in jobs for p, mi in jl], np.int32).reshape(-1, 2)
+    dev = qs.device
+    sel = torch.from_numpy(read_of).to(dev)
+    return (read_of, qs.index_select(0, sel), qlens.index_select(0, sel),
+            torch.from_numpy(np.ascontiguousarray(piv[:, 0])).to(dev),
+            torch.from_numpy(np.ascontiguousarray(piv[:, 1])).to(dev))
 
 
 def collect_seeds_device(
@@ -391,7 +392,6 @@ def collect_seeds_device(
     sized = MAXC is None and MAXS is None
     MAXC = seed_buffers(L) if MAXC is None else MAXC
     MAXS = seed_buffers(L) if MAXS is None else MAXS
-    qlens_h = qlens.cpu().numpy()
 
     def fetch(res):
         out, cnt, ovf = res
@@ -406,17 +406,15 @@ def collect_seeds_device(
     overflow = overflow.copy()
     pass1, jobs = pass1_seeds(out1, n1, overflow, n, opt)
 
-    # ---- pass 2: one single-sweep round per job rank ----
+    # ---- pass 2: every job a single sweep of its own, all in one launch ----
     pass2: List[List[SMEM]] = [[] for _ in range(n)]
-    for round_i in range(max((len(j) for j in jobs), default=0)):
-        pivots, minis = pass2_round(jobs, qlens_h, round_i)
-        o2, c2, ov2 = fetch(smem_pass(
-            dfm, qs, qlens, torch.from_numpy(pivots).to(dev),
-            torch.from_numpy(minis).to(dev), True, MAXC, MAXS))
-        overflow |= ov2
-        for r in range(n):
-            if round_i < len(jobs[r]) and not overflow[r]:
-                pass2[r].extend(m for m in _rows(o2, c2, r) if m.qe - m.qb >= opt.min_seed_len)
+    read_of, *job_args = pass2_inputs(jobs, qs, qlens)
+    if len(read_of):
+        o2, c2, ov2 = fetch(smem_pass(dfm, *job_args, True, MAXC, MAXS))
+        np.logical_or.at(overflow, read_of, ov2)
+        for jb, r in enumerate(read_of.tolist()):
+            if not overflow[r]:
+                pass2[r].extend(m for m in _rows(o2, c2, jb) if m.qe - m.qb >= opt.min_seed_len)
 
     # ---- pass 3 ----
     pass3_: List[List[SMEM]] = [[] for _ in range(n)]

@@ -20,8 +20,8 @@ that size, not in the 50 MB L2), it
     ``collect_seeds_device`` (kernels S1 and S3 and their host glue)
     against the host C++ collector ``collect_seeds_native``, in reads/s,
     and splits the device time of one ``collect_seeds_device`` call into
-    S1 (pass 1 and every pass-2 round), S3 and copies; the seeds must be
-    identical read for read.
+    S1 (pass 1, and pass 2 with every job in one launch), S3 and copies;
+    the seeds must be identical read for read.
 
 The reference's tunnel slope timing and its while-loop latency section are
 not ported: they answered a question about the TPU.  The result is one
@@ -142,7 +142,7 @@ def seeding_rates(idx, fm: DeviceFMIndex, reads: List[np.ndarray], opt) -> Dict[
     """Seed collection on the card against the host C++ collector on the
     same reads; raises unless their seeds are identical.  The device time
     of one ``collect_seeds_device`` call covers every launch it makes (pass
-    1, each pass-2 round, pass 3) and its copies."""
+    1, pass 2, pass 3) and its copies."""
     from .align.smem_native import collect_seeds_native, smem_available
 
     if not smem_available():

@@ -18,7 +18,8 @@ result line):
      batches); both are timed with CUDA events (``ms``: the wrapper's
      calls in a row, host work between launches included) and the kernel
      also by torch.profiler (``device_ms``: the card's own time per call,
-     the zeroing of an output included), and each gets its bound,
+     the zeroing of an output included; null where no profiler run kept
+     every call's records), and each gets its bound,
      the least time the card could take for the work these inputs need
      (the problems: arachne_tpu_torch/ops/problems.py).  K3 and K4 are
      also held to their plain versions, untimed, on the edge problems
@@ -30,12 +31,15 @@ result line):
   library must load;
   2b. seeding kernels: K5 rank queries on the library's index and on a
      synthetic GRCh38-sized wide table (2048 rows each, edge rows
-     included); S1 (pass 1 and the first pass-2 round) and S3 on one
-     superbatch of the library (4096 pairs, 8192 reads of 150 bp), with the
-     main path's buffers (seed_buffers of the padded width: no read may
-     overflow) and with MAXC=2, MAXS=4, which overflow.  Each must equal
-     its plain version on the card exactly (out, out_n and the overflow
-     flags); both are timed with CUDA events.
+     included); S1 (pass 1, and pass 2: every job of pass 1's SMEMs in one
+     launch, as collect_seeds_device runs it) and S3 on one superbatch of
+     the library (4096 pairs, 8192 reads of 150 bp), with the main path's
+     buffers (seed_buffers of the padded width: no read may overflow) and
+     with MAXC=2, MAXS=4, which overflow.  Each must equal its plain version
+     on the card exactly (out, out_n and the overflow flags); both are
+     timed with CUDA events, and the kernels also by torch.profiler
+     (``device_ms``, the zeroing of out included; S1 on its pass-1 and on
+     its pass-2 launch; K5 on 2^20 uniform rows of the wide table).
      Then K5's own path, ``python -m arachne_tpu_torch.seeding_bench`` on
      the library's index: rank queries/s at three batch sizes on both
      tables, and device against host seeding on 4096 reads;
@@ -411,10 +415,18 @@ def kernel_parity(dev):
     return rows
 
 
+def on_card(ms) -> str:
+    """A device time as logged; None where the profiler lost records."""
+    return f"{ms:.4f} ms on the card" if ms is not None else "on the card: not measured"
+
+
 def log_rows(rows):
     for name, r in rows.items():
-        on_card = f" ({r['device_ms']:.4f} ms on the card)" if r.get("device_ms") else ""
-        log(f"   {name}: kernel {r['ms']:.3f} ms{on_card}, plain {r['plain_ms']:.3f} ms, "
+        card = f" ({on_card(r.get('device_ms'))})"
+        if "pass2_ms" in r:
+            card += (f"; pass 2 ({r['pass2_jobs']} jobs) {r['pass2_ms']:.3f} ms "
+                     f"({on_card(r['pass2_device_ms'])})")
+        log(f"   {name}: kernel {r['ms']:.3f} ms{card}, plain {r['plain_ms']:.3f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max abs err {r['err']} "
             "(tolerance 0)")
 
@@ -434,22 +446,6 @@ def library(work):
         raise RuntimeError("the native C++ host library did not load: the main path "
                            "would seed and chain on numpy fallbacks")
     return ref, r1, r2, n
-
-
-def library_reads(r1, r2, n_pairs):
-    """The first ``n_pairs`` pairs of the library as 2n code arrays."""
-    import gzip
-
-    from arachne_tpu_torch.align.pipeline import seq_to_codes
-
-    reads = []
-    with gzip.open(r1, "rt") as f1, gzip.open(r2, "rt") as f2:
-        for k, (l1, l2) in enumerate(zip(f1, f2)):
-            if k // 4 >= n_pairs:
-                break
-            if k % 4 == 1:
-                reads += [seq_to_codes(l1.strip()), seq_to_codes(l2.strip())]
-    return reads
 
 
 MAIN_LAUNCHERS = ("K1", "K2", "K3 score", "K3 z", "K4")
@@ -488,11 +484,12 @@ def seeding_parity(dev, lib, work):
 
     from arachne_tpu_torch.config import MemOptions, PipelineOptions
     from arachne_tpu_torch.index import FMIndex, load_index
-    from arachne_tpu_torch import seeding_bench
-    from arachne_tpu_torch.device import cuda_ms
-    from arachne_tpu_torch.ops.fm_rank import DeviceFMIndex
+    from arachne_tpu_torch import device, seeding_bench
+    from arachne_tpu_torch.device import cuda_ms, device_ms
+    from arachne_tpu_torch.measure import library_reads
+    from arachne_tpu_torch.ops.fm_rank import DeviceFMIndex, occ4_device
     from arachne_tpu_torch.ops.fm_seed import (
-        pad_reads, pass1_seeds, pass2_round, pass3, pass3_torch, seed_buffers, smem_pass,
+        pad_reads, pass1_seeds, pass2_inputs, pass3, pass3_torch, seed_buffers, smem_pass,
         smem_pass_torch,
     )
 
@@ -508,7 +505,6 @@ def seeding_parity(dev, lib, work):
     err_k5 = max(err_k5, seeding_bench.rank_parity(wide))
     log(f"   K5: 2048 rows each on the index ({fm.seq_len} rows, int32) and the "
         f"GRCh38-sized table ({wide.seq_len} rows, int64) equal the plain version")
-    del wide
 
     # S1 and S3 on one superbatch of the library's reads -----------------
     # The main path seeds a superbatch (reads_per_batch pairs) at a time
@@ -530,9 +526,8 @@ def seeding_parity(dev, lib, work):
         err_s1 = max(err_s1, require_equal(f"S1 pass 1, {tag}", zip(got1, want1)))
         out1, n1, ovf1 = (t.cpu().numpy() for t in got1)
         _, jobs = pass1_seeds(out1, n1, ovf1, len(reads), opt)
-        pivots, minis = pass2_round(jobs, qlens.cpu().numpy(), 0)
-        p2 = (qs, qlens, torch.from_numpy(pivots).to(dev), torch.from_numpy(minis).to(dev),
-              True, MAXC, MAXS)
+        _, *job_args = pass2_inputs(jobs, qs, qlens)
+        p2 = (*job_args, True, MAXC, MAXS)
         got2 = smem_pass(fm, *p2)
         err_s1 = max(err_s1, require_equal(f"S1 pass 2, {tag}", zip(got2, smem_pass_torch(fm, *p2))))
         p3 = (qs, qlens, opt.min_seed_len, opt.max_mem_intv, MAXS)
@@ -542,7 +537,7 @@ def seeding_parity(dev, lib, work):
         err_s3 = max(err_s3, require_equal(f"S3, {tag}", zip(got3, want3)))
         flags = [int(g[2].sum()) for g in (got1, got2, got3)]
         log(f"   S1/S3, {tag}: equal on {len(reads)} reads (R {R}, L {L}); "
-            f"{sum(map(len, jobs))} pass-2 jobs; overflow flags pass 1 / pass-2 round / "
+            f"{sum(map(len, jobs))} pass-2 jobs; overflow flags pass 1 / pass 2 / "
             f"pass 3: {flags}")
         if MAXC == 2:
             if not (flags[0] and flags[2]):
@@ -550,15 +545,28 @@ def seeding_parity(dev, lib, work):
             continue
         if any(flags):
             raise AssertionError(f"{tag}: reads overflowed the main path's buffers: {flags}")
-        rows["S1"] = dict(err=err_s1, ms=cuda_ms(lambda: smem_pass(fm, *p1), 10),
+        s1, s1_pass2, s3 = ((lambda: smem_pass(fm, *p1)), (lambda: smem_pass(fm, *p2)),
+                            (lambda: pass3(fm, *p3)))
+        rows["S1"] = dict(err=err_s1, ms=cuda_ms(s1, 10), device_ms=device_ms(s1, 10),
+                          pass2_ms=cuda_ms(s1_pass2, 10), pass2_device_ms=device_ms(s1_pass2, 10),
+                          pass2_jobs=int(p2[0].shape[0]),
                           plain_ms=plain1_ms, rank_rows=st1["rank_rows"],
                           **bound(nbytes=st1["rank_rows"] * RANK_ROW_BYTES,
                                   bytes_per_s=RATES["l2"]))
-        rows["S3"] = dict(err=err_s3, ms=cuda_ms(lambda: pass3(fm, *p3), 10),
+        rows["S3"] = dict(err=err_s3, ms=cuda_ms(s3, 10), device_ms=device_ms(s3, 10),
                           plain_ms=plain3_ms, rank_rows=st3["rank_rows"],
                           **bound(nbytes=st3["rank_rows"] * RANK_ROW_BYTES,
                                   bytes_per_s=RATES["l2"]))
     rows["S1"]["err"], rows["S3"]["err"] = err_s1, err_s3
+    # K5's device time at the rank benchmark's largest batch (2^20 uniform
+    # rows of the wide table, drawn as the benchmark draws them), measured
+    # here as S1's and S3's are
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    ks = torch.randint(0, wide.seq_len, (seeding_bench.BATCHES[-1],), dtype=wide.idt,
+                       device=dev, generator=g)
+    k5_device_ms = device_ms(lambda: occ4_device(wide, ks), 10)
+    del wide, ks
 
     # K5's own path: the rank benchmark, counted from zero ----------------
     reset_counts()
@@ -569,12 +577,14 @@ def seeding_parity(dev, lib, work):
         raise AssertionError("K5 never launched in seeding_bench")
     at = {name: t["batches"][-1] for name, t in bench["tables"].items()}
     rows["K5"] = dict(err=err_k5, ms=at["grch38_sized"]["ms"],
+                      device_ms=k5_device_ms,
                       plain_ms=at["grch38_sized"]["plain_ms"],
                       rank_rows=at["grch38_sized"]["B"],
                       **bound(nbytes=at["grch38_sized"]["B"] * RANK_ROW_BYTES),
                       rank_qps={name: b["rank_qps"] for name, b in at.items()},
                       plain_rank_qps={name: b["plain_rank_qps"] for name, b in at.items()})
     log_rows(rows)
+    log(f"   profiler runs thrown away for lost device records: {device.lost_profiles}")
     return rows, {"K5": k5_launches}, bench["seeding"]
 
 
@@ -766,7 +776,8 @@ def main() -> int:
                  "bound_ms": rows[key]["bound_ms"], "bound_by": rows[key]["bound_by"],
                  "library_ms": None},
                 **{k: v for k, v in rows[key].items()
-                   if k.endswith("rank_qps") or k in ("cells", "rank_rows", "steps", "device_ms")},
+                   if k.endswith("rank_qps") or k.startswith("pass2_")
+                   or k in ("cells", "rank_rows", "steps", "device_ms")},
             )
             for key, fn, src, rep in KERNELS
         ]

@@ -1,14 +1,19 @@
-"""The kernel library's routing, the A/B tool's refusals and chip_smoke's
-bound, on the CPU (nothing here builds or launches a kernel)."""
+"""The kernel library's routing and alignment checks, the A/B tool's
+refusals and seeding cases, and chip_smoke's bound, on the CPU (nothing
+here builds or launches a kernel)."""
 
 import os
 
 import pytest
+import torch
 
 import chip_smoke
 from arachne_tpu_torch import ab
 from arachne_tpu_torch.ops import build
+from arachne_tpu_torch.ab import SEEDING, seeding_problems
 from arachne_tpu_torch.ops.problems import MAIN
+
+torch.set_num_threads(1)
 
 
 def test_routed_to_swaps_the_library_and_restores_it(monkeypatch):
@@ -61,3 +66,100 @@ def test_bound_takes_the_slower_of_operations_and_bytes(monkeypatch, kw, ms, by)
     got = chip_smoke.bound(**kw)
     assert got["bound_by"] == by
     assert got["bound_ms"] == pytest.approx(ms, rel=1e-4)
+
+
+def test_ab_takes_the_seeding_kernels():
+    a = ab.parser().parse_args([".", "--kernels", *SEEDING])
+    assert a.kernels == ["S1 pass 1", "S1 pass 2", "S3", "K5"]
+    with pytest.raises(SystemExit):
+        ab.parser().parse_args([".", "--kernels", "S2"])
+
+
+def test_seeding_problems_build_their_inputs():
+    """The seeding cases at a tiny size on the CPU, through the wrappers'
+    plain versions: each case's arguments fit its wrapper, and ab routes
+    them to the CUDA launchers as they are."""
+    from arachne_tpu_torch.ops import fm_rank, fm_seed
+    from arachne_tpu_torch.ops.cuda_rank import rank_cuda
+    from arachne_tpu_torch.ops.cuda_seed import pass3_cuda, smem_pass_cuda
+
+    cases = seeding_problems("cpu", genome_bp=60_000, n_pairs=24, wide_blocks=16, rank_rows=999,
+                             barcodes=2, molecules=1, pairs=20, molecule_len=8000)
+    assert list(cases) == list(SEEDING)
+    fm, qs, qlens = cases["S1 pass 1"][:3]
+    assert qs.shape == (64, 192) and int((qlens > 0).sum()) == 48
+    B = fm_seed.seed_buffers(192)
+    out, n, ovf = fm_seed.smem_pass(*cases["S1 pass 1"])
+    assert out.shape == (64, B, 5) and int(n.sum()) > 0 and not bool(ovf.any())
+    J = cases["S1 pass 2"][1].shape[0]
+    assert 24 <= J and cases["S1 pass 2"][5] is True
+    out2, n2, _ = fm_seed.smem_pass(*cases["S1 pass 2"])
+    assert out2.shape == (J, B, 5) and int(n2.min()) >= 1
+    assert fm_seed.pass3(*cases["S3"])[0].shape == (64, B, 5)
+    wide, ks = cases["K5"]
+    assert wide.idt == torch.int64 and fm_rank.occ4_device(wide, ks).shape == (999, 4)
+    for name, launcher in zip(SEEDING, (smem_pass_cuda, smem_pass_cuda, pass3_cuda, rank_cuda)):
+        fn, args, kw = ab.case(name, torch.device("cpu"), None, cases)
+        assert fn is launcher and args == list(cases[name]) and kw == {}
+
+
+def test_tables_off_16_bytes_are_refused():
+    """rank.cuh reads occ and words as 16-byte vectors: a view that starts
+    inside an allocation is refused before any launch."""
+    import torch
+
+    t = torch.zeros(64, dtype=torch.int32)
+    build.require_aligned(t, "words", 16)
+    build.require_aligned(t[4:], "words", 16)
+    with pytest.raises(ValueError, match="not on 16 bytes"):
+        build.require_aligned(t[1:], "words", 16)
+
+
+class _Span:
+    def __init__(self, us):
+        self.us = us
+
+    def elapsed_us(self):
+        return self.us
+
+
+class _Record:
+    def __init__(self, us, cuda=True):
+        self.time_range = _Span(us)
+        self.device_type = torch.autograd.DeviceType.CUDA if cuda else torch.autograd.DeviceType.CPU
+
+
+def test_device_ms_throws_away_a_profile_that_lost_records(monkeypatch):
+    """A profiler run whose device records are not the same for every call
+    would read low: device_ms runs it again, and gives up with None."""
+    from arachne_tpu_torch import device
+
+    runs = [[_Record(100.0)] * 7 + [_Record(5.0, cuda=False)],   # 7 of 10 kernels recorded
+            [_Record(100.0)] * 10 + [_Record(5.0, cuda=False)]]
+
+    class FakeProfile:
+        def __init__(self, activities, schedule):
+            self.records = runs.pop(0) if runs else []
+            self.steps = 0
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def step(self):
+            self.steps += 1
+
+        def events(self):
+            assert self.steps == 2   # the warm-up step, then the recorded one
+            return self.records
+
+    monkeypatch.setattr(torch.profiler, "profile", FakeProfile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(device, "lost_profiles", 0)
+    calls = []
+    assert device.device_ms(lambda: calls.append(1), 10) == pytest.approx(0.1)
+    assert device.lost_profiles == 1 and len(calls) == 22   # a warm call a run
+    assert device.device_ms(lambda: None, 10) is None
+    assert device.lost_profiles == 1 + device.PROFILE_TRIES

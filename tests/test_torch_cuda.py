@@ -320,13 +320,20 @@ def test_seed_kernels_match_plain(dev, seeding_genome, wide, bufs):
     from arachne_tpu_torch.ops.cuda_seed import pass3_cuda, smem_pass_cuda
     from arachne_tpu_torch.ops.fm_rank import DeviceFMIndex
     from arachne_tpu_torch.ops.fm_seed import (
-        pad_reads, pass3, pass3_torch, seed_buffers, smem_pass, smem_pass_torch,
+        pad_reads, pass1_seeds, pass2_inputs, pass3, pass3_torch, seed_buffers, smem_pass,
+        smem_pass_torch,
     )
 
     idx, reads = seeding_genome
+    fwd = seeding_genome_fwd(idx)
+    # reads from the planted repeat carry many intervals backward, in counts
+    # that the kernel's group of SEED_GROUP does not divide; then the edge
+    # reads: all N, one base, and 192 bases (qlen = L once padded)
+    reads = (reads[:224] + [fwd[9000 + 37 * k : 9150 + 37 * k].copy() for k in range(29)]
+             + [np.full(150, 4, np.uint8), fwd[500:501].copy(), fwd[7000:7192].copy()])
     fm = DeviceFMIndex.from_host(idx, dev, wide=wide)
     # the small buffers make reads spin to the step cap: keep L at 64 there
-    qs, qlens = pad_reads([r[:60] if bufs == (2, 4) else r for r in reads[:256]], dev)
+    qs, qlens = pad_reads([r[:60] if bufs == (2, 4) else r for r in reads], dev)
     R, L = qs.shape
     # None: the buffers collect_seeds_device gives the kernels
     MAXC, MAXS = bufs or (seed_buffers(L),) * 2
@@ -335,18 +342,62 @@ def test_seed_kernels_match_plain(dev, seeding_genome, wide, bufs):
     pivots = torch.from_numpy(pivots.astype(np.int32)).to(dev)
     minis = torch.from_numpy(rng.integers(1, 4, R).astype(np.int32)).to(dev)
     zeros, ones = torch.zeros_like(pivots), torch.ones_like(pivots)
-    for single_sweep, piv, mi in ((False, zeros, ones), (True, pivots, minis)):
+    cases = [(False, qs, qlens, zeros, ones), (True, qs, qlens, pivots, minis)]
+    for k, (single_sweep, q, ql, piv, mi) in enumerate(cases):
         before = smem_pass_cuda.launches
-        got = smem_pass(fm, qs, qlens, piv, mi, single_sweep, MAXC, MAXS)
+        got = smem_pass(fm, q, ql, piv, mi, single_sweep, MAXC, MAXS)
         assert smem_pass_cuda.launches == before + 1
-        want = smem_pass_torch(fm, qs, qlens, piv, mi, single_sweep, MAXC, MAXS)
+        want = smem_pass_torch(fm, q, ql, piv, mi, single_sweep, MAXC, MAXS)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
         assert bool(got[2].any()) == (MAXC == 2)
+        if k == 0:   # pass 2 as collect_seeds_device runs it: every job at once
+            out1, n1, ovf1 = (t.cpu().numpy() for t in got)
+            _, jobs = pass1_seeds(out1, n1, ovf1.copy(), len(reads), OPT)
+            _, *job_args = pass2_inputs(jobs, qs, qlens)
+            if len(job_args[0]):
+                cases.append((True, *job_args))
     before = pass3_cuda.launches
     got = pass3(fm, qs, qlens, OPT.min_seed_len, OPT.max_mem_intv, MAXS)
     assert pass3_cuda.launches == before + 1
     want = pass3_torch(fm, qs, qlens, OPT.min_seed_len, OPT.max_mem_intv, MAXS)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def seeding_genome_fwd(idx):
+    from arachne_tpu_torch.index import unpack_2bit
+
+    return unpack_2bit(idx.packed.pac, 0, idx.packed.l_pac)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", ["occ", "words"])
+def test_seed_launchers_refuse_misaligned_tables(dev, seeding_genome, table):
+    """rank.cuh reads occ and words as 16-byte vectors: a table that
+    starts 4 bytes into its allocation is refused by every launcher before
+    it launches."""
+    import dataclasses
+
+    from arachne_tpu_torch.ops.cuda_rank import rank_cuda
+    from arachne_tpu_torch.ops.cuda_seed import pass3_cuda, smem_pass_cuda
+    from arachne_tpu_torch.ops.fm_rank import DeviceFMIndex
+    from arachne_tpu_torch.ops.fm_seed import pad_reads
+
+    idx, reads = seeding_genome
+    fm = DeviceFMIndex.from_host(idx, dev)
+    t = getattr(fm, table)
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+    shifted = buf[1:].view(t.shape)
+    shifted.copy_(t)
+    bad = dataclasses.replace(fm, **{table: shifted})
+    qs, qlens = pad_reads(reads[:64], dev)
+    ones = torch.ones(64, dtype=torch.int32, device=dev)
+    before = (rank_cuda.launches, smem_pass_cuda.launches, pass3_cuda.launches)
+    for call in (lambda: rank_cuda(bad, qlens),
+                 lambda: smem_pass_cuda(bad, qs, qlens, ones * 0, ones, False, 12, 48),
+                 lambda: pass3_cuda(bad, qs, qlens, 19, 20, 48)):
+        with pytest.raises(ValueError, match="not on 16 bytes"):
+            call()
+    assert (rank_cuda.launches, smem_pass_cuda.launches, pass3_cuda.launches) == before
 
 
 @pytest.mark.cuda

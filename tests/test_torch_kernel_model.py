@@ -288,3 +288,471 @@ def test_model_notices_a_broken_trap(broken):
     kw = {broken: False}
     score, z = model_global(*arrs, want_z=True, **kw)
     assert not (np.array_equal(score, want_score) and np.array_equal(z, want_z))
+
+
+# ----------------------------------------------------------------------
+# K5's occ4 routine (csrc/rank.cuh) and the seeding state machines S1 and
+# S3 (csrc/seed.cu) that inline it, against occ4_torch, smem_pass_torch and
+# pass3_torch.  A thread runs one read, so the models run one read at a
+# time, in rounds as the kernels do: a round is one round trip of rank
+# loads (a forward extend, or one group of G carried intervals of a
+# backward step).  The kernels' workspace is modelled by two interval
+# buffers that swap roles, the first read in reverse after a forward sweep.
+# ----------------------------------------------------------------------
+
+M32 = 0xFFFFFFFF
+BASE_LANE = 0x55555555
+
+
+def popc(v):
+    """__popc of 32-bit values held in int64."""
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return ((v * 0x01010101) & M32) >> 24
+
+
+class Tabs:
+    """A DeviceFMIndex's tables as numpy int64 (words as their uint32 bits)."""
+
+    def __init__(self, fm):
+        self.occ = fm.occ.numpy().astype(np.int64)
+        self.words = fm.words.numpy().astype(np.int64) & M32
+        self.L2 = fm.L2.numpy().astype(np.int64)
+        self.primary, self.seq_len = int(fm.primary), int(fm.seq_len)
+
+
+def model_occ4(tab, k):
+    """arachne_occ4_count(arachne_occ4_load(k)) for every row of k (...,):
+    returns (..., 4).  All eight words of the block are loaded; each is
+    masked by a select (whole below the row's word, bases 0..p in it,
+    nothing above); C, G and T are counted two words to a popcount and A
+    is the rest of the j + 1 bases; the -1 and seq_len edges are selects
+    after the loads."""
+    k = np.asarray(k, np.int64)
+    kk = np.clip(k - (k >= tab.primary), 0, tab.seq_len - 1)
+    block = kk >> 7
+    w = tab.words[(block * 8)[..., None] + np.arange(8)]
+    base = tab.occ[block]
+    j = kk & 127
+    wi, p = (j >> 4)[..., None], (j & 15)[..., None]
+    part = ~((1 << (2 * (15 - p))) - 1) & M32
+    x = np.arange(8)
+    v = w & np.where(x < wi, M32, np.where(x == wi, part, 0))
+    # words 2m and 2m + 1 share a popcount, the second on the odd bits
+    lo = (v[..., 0::2] & BASE_LANE) | ((v[..., 1::2] & BASE_LANE) << 1)
+    hi = ((v[..., 0::2] >> 1) & BASE_LANE) | (((v[..., 1::2] >> 1) & BASE_LANE) << 1)
+    t = popc(lo & hi)
+    c3 = t.sum(-1)
+    c2 = (popc(hi) - t).sum(-1)
+    c1 = (popc(lo) - t).sum(-1)
+    cnt = np.stack([j + 1 - c1 - c2 - c3, c1, c2, c3], axis=-1)
+    out = base + cnt
+    out = np.where((k == -1)[..., None], 0, out)
+    return np.where((k == tab.seq_len)[..., None], tab.L2[1:] - tab.L2[:-1], out)
+
+
+def model_extend(tab, xb, x2, xo, is_back, c):
+    """Tables::issue then Tables::finish of seed.cu, for arrays of extends
+    (one round's loads all issued before any count)."""
+    tk, tl = model_occ4(tab, np.stack([xb - 1, xb - 1 + x2]))
+    hit = ((xb <= tab.primary) & (xb + x2 - 1 >= tab.primary)).astype(np.int64)
+    o = xo + hit
+    for d in (1, 2, 3):
+        o = o + np.where(d > c, tl[..., d] - tk[..., d], 0)
+    b = tab.L2[c] + 1 + tk[..., c]
+    s = tl[..., c] - tk[..., c]
+    return (b, o, s) if is_back else (o, b, s)
+
+
+def code_at(q, qlen, x):
+    return int(q[x]) if 0 <= x < qlen else 4
+
+
+PH_PIVOT, PH_FWD, PH_BACK, PH_DONE = range(4)
+
+
+class S1Thread:
+    """smem_pass_kernel<T, G> as one thread runs it on one read; ``rounds``
+    lists the extends of each of its rounds (one round trip each)."""
+
+    def __init__(self, tab, q, qlen, pivot0, min_intv, single_sweep, L, MAXC, MAXS, G):
+        self.tab, self.q, self.qlen, self.min_intv = tab, q, qlen, min_intv
+        self.single_sweep, self.MAXC, self.MAXS, self.G = single_sweep, MAXC, MAXS, G
+        self.cap = 16 * L + 64
+        self.bufs = [[None] * MAXC, [None] * MAXC]
+        self.cur, self.prv = 0, 1               # which buffer is curr, which prev
+        self.mem = [None] * MAXS                # this sweep's SMEMs, qb descending
+        self.out = []
+        self.curr_n = self.prev_n = self.mem_n = 0
+        self.prev_rev = self.ovf = False
+        self.phase = PH_PIVOT
+        self.x = self.pivot = pivot0
+        self.i = 0
+        self.ik = (0, 0, 0, 0)                  # k, l, s, info
+        self.rounds = []                        # extends of each round
+
+    def code(self, x):
+        return int(self.q[x]) if 0 <= x < self.qlen else 4
+
+    def push_curr(self, item):
+        if self.curr_n >= self.MAXC:
+            self.ovf = True
+        else:
+            self.bufs[self.cur][self.curr_n] = tuple(item)
+            self.curr_n += 1
+
+    def begin_back_step(self):
+        self.cb = self.code(self.i)
+        self.c_ok = self.i >= 0 and self.cb < 4
+        self.j0, self.ncurr, self.last_s = 0, 0, -1
+
+    def turn_back(self):
+        last = min(max(self.curr_n - 1, 0), self.MAXC - 1)
+        self.x = self.bufs[self.cur][last][3]
+        self.cur, self.prv = self.prv, self.cur
+        self.prev_n, self.prev_rev = self.curr_n, True
+        self.i = self.pivot - 1
+        self.phase = PH_BACK
+        self.begin_back_step()
+
+    def run(self):
+        step = 0
+        while True:
+            while self.phase == PH_PIVOT and step < self.cap:
+                x = self.x
+                self.pivot = x
+                c = self.code(x)
+                if x >= self.qlen:
+                    self.phase = PH_DONE
+                    step += 1
+                elif c >= 4:
+                    self.x = x + 1
+                    step += 1
+                else:
+                    L2 = self.tab.L2
+                    self.ik = (L2[c] + 1, L2[3 - c] + 1, L2[c + 1] - L2[c], x + 1)
+                    self.i, self.curr_n, self.mem_n = x + 1, 0, 0
+                    self.phase = PH_FWD
+            if self.phase == PH_DONE or step >= self.cap:
+                return self.out, self.ovf
+            self.rounds.append(1 if self.phase == PH_FWD else min(self.G, self.prev_n - self.j0))
+            if self.phase == PH_FWD:
+                if self.forward():
+                    self.turn_back()        # the step goes on backward
+                else:
+                    step += 1
+            elif self.back_group():
+                step += 1
+
+    def forward(self):
+        """One forward step; True when the sweep turns back."""
+        i, ik = self.i, self.ik
+        ci = self.code(i)
+        if i >= self.qlen or ci >= 4:
+            self.push_curr(ik)               # terminal
+            return True
+        n0, n1, ns = (int(v) for v in model_extend(
+            self.tab, np.int64(ik[1]), np.int64(ik[2]), np.int64(ik[0]), False, 3 - ci))
+        changed = ns != ik[2]
+        if changed:
+            self.push_curr(ik)
+        if changed and ns < self.min_intv:  # too small
+            return True
+        self.ik = (n0, n1, ns, i + 1)
+        self.i = i + 1
+        if self.i >= self.qlen:             # reached the end
+            self.push_curr(self.ik)
+            return True
+        return False
+
+    def back_group(self):
+        """The next group of up to G carried intervals of the backward
+        step; True when the step is over."""
+        i, G = self.i, self.G
+        n = min(G, self.prev_n - self.j0)
+        slots = [self.prev_n - 1 - (self.j0 + g) if self.prev_rev else self.j0 + g
+                 for g in range(max(n, 0))]
+        items = [self.bufs[self.prv][s] for s in slots]
+        if items:                           # the group's queries, all at once
+            pk, pl, ps = (np.array([it[f] for it in items], np.int64) for f in range(3))
+            ext = model_extend(self.tab, pk, np.maximum(ps, 0), pl, True, self.cb & 3)
+        for g, it in enumerate(items):      # then the bookkeeping, in order
+            nb0 = nb1 = nbs = 0
+            keep = True
+            if self.c_ok:
+                nb0, nb1, nbs = (int(e[g]) for e in ext)
+                keep = nbs < self.min_intv
+            if keep:
+                no_contain = self.mem_n == 0 or i + 1 < self.mem[min(self.mem_n - 1, self.MAXS - 1)][3]
+                if self.ncurr == 0 and no_contain:
+                    if self.mem_n >= self.MAXS:
+                        self.ovf = True
+                    else:
+                        self.mem[self.mem_n] = (it[0], it[1], it[2], i + 1, it[3])
+                        self.mem_n += 1
+            elif self.ncurr == 0 or nbs != self.last_s:
+                if self.ncurr >= self.MAXC:
+                    self.ovf = True
+                else:
+                    self.bufs[self.cur][self.ncurr] = (nb0, nb1, nbs, it[3])
+                    self.ncurr += 1
+                self.last_s = nbs
+        self.j0 += max(n, 0)
+        if self.j0 < self.prev_n:
+            return False
+        if self.ncurr != 0 and i >= 0:      # the new intervals become prev
+            self.cur, self.prv = self.prv, self.cur
+            self.prev_n, self.prev_rev = self.ncurr, False
+            self.i = i - 1
+            self.begin_back_step()
+        else:                               # sweep done: append, ascending qb
+            n_out = len(self.out)
+            self.out += [self.mem[self.mem_n - 1 - t]
+                         for t in range(min(self.mem_n, self.MAXS - n_out))]
+            self.ovf |= n_out + self.mem_n > self.MAXS
+            self.phase = PH_DONE if self.single_sweep else PH_PIVOT
+        return True
+
+
+def model_pass3_read(tab, q, qlen, min_seed_len, max_intv, L, MAXS):
+    """pass3_kernel for one read: (out rows, overflow, extends)."""
+    def code(x):
+        return int(q[x]) if 0 <= x < qlen else 4
+
+    x = i = 0
+    ik = (0, 0, 0)
+    scanning = done = ovf = False
+    out = []
+    extends = 0
+    step = 0
+    while step < 8 * L + 64 and not done:
+        if not scanning:
+            cx = code(x)
+            if x >= qlen:
+                done = True
+            elif cx >= 4:
+                x += 1
+            else:
+                ik = (tab.L2[cx] + 1, tab.L2[3 - cx] + 1, tab.L2[cx + 1] - tab.L2[cx])
+                i, scanning = x + 1, True
+        if scanning:
+            extends += 1                    # its loads go out before the code is read
+            ci = code(i)
+            at_end = i >= qlen
+            hit_n = not at_end and ci >= 4
+            emit = False
+            if not at_end and not hit_n:
+                n0, n1, ns = (int(v) for v in model_extend(
+                    tab, np.int64(ik[1]), np.int64(ik[2]), np.int64(ik[0]), False, 3 - ci))
+                emit = ns < max_intv and i - x >= min_seed_len
+                if emit and ns > 0:
+                    if len(out) >= MAXS:
+                        ovf = True
+                    else:
+                        out.append((n0, n1, ns, x, i + 1))
+                if not emit:
+                    ik = (n0, n1, ns)
+                    i += 1
+            if at_end or hit_n or emit:
+                x = qlen if at_end else i + 1
+                scanning = False
+        step += 1
+    return out, ovf, extends
+
+
+def as_outputs(rows, ovfs, MAXS):
+    """Per-read rows as the kernels' (out (R, MAXS, 5), out_n, overflow)."""
+    out = np.zeros((len(rows), MAXS, 5), np.int64)
+    for r, rr in enumerate(rows):
+        if rr:
+            out[r, : len(rr)] = rr
+    return out, np.array([len(rr) for rr in rows]), np.array(ovfs)
+
+
+def model_smem_pass(tab, qs, qlens, pivots0, min_intvs, single_sweep, MAXC, MAXS, G):
+    L = qs.shape[1]
+    threads = [S1Thread(tab, qs[r], int(qlens[r]), int(pivots0[r]), int(min_intvs[r]),
+                        single_sweep, L, MAXC, MAXS, G) for r in range(len(qs))]
+    res = [t.run() for t in threads]
+    return as_outputs([o for o, _ in res], [v for _, v in res], MAXS), [t.rounds for t in threads]
+
+
+def model_pass3(tab, qs, qlens, min_seed_len, max_intv, MAXS):
+    L = qs.shape[1]
+    res = [model_pass3_read(tab, qs[r], int(qlens[r]), min_seed_len, max_intv, L, MAXS)
+           for r in range(len(qs))]
+    return as_outputs([o for o, _, _ in res], [v for _, v, _ in res], MAXS), [e for _, _, e in res]
+
+
+@pytest.fixture(scope="module")
+def seed_index():
+    """A 40 kbp random genome with a planted 2 kbp repeat (reads from it
+    carry many intervals backward), its index and its forward strand."""
+    from arachne_tpu_torch.index import FMIndex, build_fmindex, pack_reference, unpack_2bit
+
+    rng = np.random.default_rng(25)
+    seq = "".join(np.array(list("ACGT"))[rng.integers(0, 4, 40_000)])
+    seq = seq[:9000] + seq[2000:4000] + seq[9000:]
+    packed = pack_reference([("chr1", "", seq)])
+    return FMIndex(packed, build_fmindex(packed)), unpack_2bit(packed.pac, 0, packed.l_pac)
+
+
+def seed_reads(fwd, n, seed):
+    """n reads of 150 bases, every third with 1-3 Ns and every fourth from
+    the planted repeat, then the edge reads: all N, one base, and 192
+    bases (qlen = L once padded)."""
+    from arachne_tpu_torch.seeding_bench import sample_reads
+
+    rng = np.random.default_rng(seed)
+    reads = sample_reads(fwd, n, seed=seed)
+    for r, read in enumerate(reads):
+        if r % 4 == 1:
+            at = 2000 + int(rng.integers(0, 1850))
+            read[:] = fwd[at : at + 150]
+        if r % 3 == 0:
+            read[rng.integers(0, 150, int(rng.integers(1, 4)))] = 4
+    return reads + [np.full(150, 4, np.uint8), fwd[500:501].copy(), fwd[7000:7192].copy()]
+
+
+_PLAIN = {}
+
+
+def seed_case(seed_index, wide, small):
+    """(Tabs, DeviceFMIndex, qs, qlens, pass-2 pivots, min_intvs) on the
+    CPU; ``small`` cuts 12 reads to 30 bases at a width L of 32, for
+    buffers that overflow, whose reads spin to the step cap (16 L + 64)."""
+    from arachne_tpu_torch.ops.fm_rank import DeviceFMIndex
+    from arachne_tpu_torch.ops.fm_seed import pad_reads
+
+    idx, fwd = seed_index
+    reads = seed_reads(fwd, 24, 27)
+    if small:
+        reads = [r[:30] for r in reads[:9] + reads[-3:]]
+    fm = DeviceFMIndex.from_host(idx, "cpu", wide=wide)
+    qs, qlens = pad_reads(reads, "cpu")
+    qs, qlens = qs[: len(reads), : 32 if small else None].contiguous(), qlens[: len(reads)]
+    rng = np.random.default_rng(28)
+    pivots = (rng.integers(0, 1 << 20, len(reads)) % np.maximum(qlens.numpy(), 1)).astype(np.int32)
+    minis = rng.integers(1, 4, len(reads)).astype(np.int32)
+    return Tabs(fm), fm, qs, qlens, pivots, minis
+
+
+def plain_smem(seed_index, wide, small, single_sweep, MAXC, MAXS):
+    from arachne_tpu_torch.ops.fm_seed import smem_pass_torch
+
+    key = (wide, small, single_sweep, MAXC, MAXS)
+    if key not in _PLAIN:
+        _, fm, qs, qlens, pivots, minis = seed_case(seed_index, wide, small)
+        R = len(qs)
+        piv = torch.from_numpy(pivots) if single_sweep else torch.zeros(R, dtype=torch.int32)
+        mi = torch.from_numpy(minis) if single_sweep else torch.ones(R, dtype=torch.int32)
+        _PLAIN[key] = [t.numpy() for t in smem_pass_torch(fm, qs, qlens, piv, mi, single_sweep,
+                                                          MAXC, MAXS)]
+    return _PLAIN[key]
+
+
+@pytest.mark.parametrize("table", ["narrow", "wide", "random words"])
+def test_occ4_model_matches_plain_on_every_row(seed_index, table):
+    """Every row from -1 to seq_len (so 0, primary - 1, primary, primary +
+    1, seq_len - 1 and seq_len among them) of the index, narrow and wide,
+    and of 64 blocks of random words and counts."""
+    from arachne_tpu_torch.ops.fm_rank import DeviceFMIndex, occ4_torch
+    from arachne_tpu_torch.seeding_bench import synthetic_table
+
+    if table == "random words":
+        fm = synthetic_table("cpu", 64)
+    else:
+        fm = DeviceFMIndex.from_host(seed_index[0], "cpu", wide=table == "wide")
+    ks = np.arange(-1, fm.seq_len + 1, dtype=np.int64)
+    want = occ4_torch(fm, torch.from_numpy(ks).to(fm.idt)).numpy()
+    np.testing.assert_array_equal(model_occ4(Tabs(fm), ks), want)
+
+
+S1_MODEL_CASES = (
+    [(G, ss, "sized", False) for G in (1, 2, 3, 4, 16) for ss in (False, True)]
+    + [(3, False, "2x4", False), (3, True, "2x4", False), (16, False, "2x4", False)]
+    + [(4, ss, "sized", True) for ss in (False, True)]
+)
+
+
+@pytest.mark.parametrize(
+    "G,single_sweep,bufs,wide", S1_MODEL_CASES,
+    ids=[f"G{G}-{'pass2' if s else 'pass1'}-{b}-{'wide' if w else 'narrow'}"
+         for G, s, b, w in S1_MODEL_CASES])
+def test_smem_model_matches_plain(seed_index, G, single_sweep, bufs, wide):
+    """S1 with its backward steps in groups of G against smem_pass_torch:
+    pass 1 (pivot 0, min_intv 1) and single sweeps from random pivots with
+    min_intv 1..3, at seed_buffers(L) and at MAXC 2 / MAXS 4, which
+    overflow and make reads spin to the step cap."""
+    from arachne_tpu_torch.ops.fm_seed import seed_buffers
+
+    small = bufs == "2x4"
+    tab, _, qs, qlens, pivots, minis = seed_case(seed_index, wide, small)
+    R, L = qs.shape
+    MAXC, MAXS = (2, 4) if small else (seed_buffers(L),) * 2
+    piv = pivots if single_sweep else np.zeros(R, np.int32)
+    mi = minis if single_sweep else np.ones(R, np.int32)
+    got, rounds = model_smem_pass(tab, qs.numpy(), qlens.numpy(), piv, mi, single_sweep,
+                                  MAXC, MAXS, G)
+    want = plain_smem(seed_index, wide, small, single_sweep, MAXC, MAXS)
+    for label, g, w in zip(("out", "out_n", "overflow"), got, want):
+        np.testing.assert_array_equal(g, w, err_msg=label)
+    assert bool(want[2].any()) == small and int(want[1].sum()) > 0
+
+
+@pytest.mark.parametrize("wide,MAXS", [(False, None), (True, None), (False, 4)],
+                         ids=["narrow-sized", "wide-sized", "narrow-MAXS4"])
+def test_pass3_model_matches_plain(seed_index, wide, MAXS):
+    from arachne_tpu_torch.ops.fm_seed import pass3_torch, seed_buffers
+
+    tab, fm, qs, qlens, _, _ = seed_case(seed_index, wide, False)
+    MAXS = MAXS or seed_buffers(qs.shape[1])
+    got, _ = model_pass3(tab, qs.numpy(), qlens.numpy(), OPT.min_seed_len, OPT.max_mem_intv, MAXS)
+    want = pass3_torch(fm, qs, qlens, OPT.min_seed_len, OPT.max_mem_intv, MAXS)
+    for label, g, w in zip(("out", "out_n", "overflow"), got, want):
+        np.testing.assert_array_equal(g, w.numpy(), err_msg=label)
+    assert bool(want[2].any()) == (MAXS == 4)
+
+
+def warp_cost(rounds, lanes=32):
+    """(loop iterations, extend slots) of each warp of ``lanes`` consecutive
+    reads, from S1Thread.rounds: the warp's threads take their rounds side
+    by side, and an iteration counts its largest group's extends one after
+    another, so it costs that many slots."""
+    cost = []
+    for w in range(0, len(rounds), lanes):
+        lanes_ = rounds[w : w + lanes]
+        n = max(len(r) for r in lanes_)
+        cost.append((n, sum(max(r[t] if t < len(r) else 0 for r in lanes_) for t in range(n))))
+    return cost
+
+
+def test_warp_cost_takes_the_largest_group_of_each_iteration():
+    assert warp_cost([[1, 1, 3], [1, 2], [1]], lanes=2) == [(3, 1 + 2 + 3), (1, 1)]
+
+
+if __name__ == "__main__":
+    # python tests/test_torch_kernel_model.py [G ...]: the slowest warp's
+    # iterations and extend slots for S1's pass 1 on the first 1,024 reads
+    # of the main path's library (measure.make_library)
+    import sys
+    import tempfile
+
+    from arachne_tpu_torch.index import FMIndex, load_index
+    from arachne_tpu_torch.measure import library_reads, make_library
+    from arachne_tpu_torch.ops.fm_rank import DeviceFMIndex
+    from arachne_tpu_torch.ops.fm_seed import pad_reads, seed_buffers
+
+    with tempfile.TemporaryDirectory() as work:
+        ref, r1, r2, *_ = make_library(work)
+        tab = Tabs(DeviceFMIndex.from_host(FMIndex(*load_index(ref + ".arx.npz")), "cpu"))
+        reads = library_reads(r1, r2, 512)
+    qs, qlens = pad_reads(reads, "cpu")
+    n, B = len(reads), seed_buffers(qs.shape[1])
+    for G in [int(g) for g in sys.argv[1:]] or [1, 2, 4, 8, 16]:
+        _, rounds = model_smem_pass(tab, qs.numpy()[:n], qlens.numpy()[:n], np.zeros(n, np.int32),
+                                    np.ones(n, np.int32), False, B, B, G)
+        cost = warp_cost(rounds)
+        print(f"G {G}: slowest warp {max(c[0] for c in cost)} iterations, "
+              f"{max(c[1] for c in cost)} extend slots", flush=True)

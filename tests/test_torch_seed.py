@@ -251,3 +251,47 @@ def test_batch_align_single_with_device_seeding(genome, families):
                              dfm=tfm.DeviceFMIndex.from_host(idx, "cpu"))
     assert dev == host
     assert sum(len(r) for r in dev) >= len(reads)
+
+
+def test_pass2_runs_every_job_in_one_launch(genome, ref_idx, monkeypatch):
+    """Reads of 0, 1, 2 and 3 pass-2 jobs (an all-N read; a clean read, one
+    long SMEM; one and two substitutions, two and three): pass 2 is one S1
+    launch over all the jobs, and collect_seeds_device still equals the
+    JAX package's, the native collector's and the scalar collector's."""
+    from arachne_tpu_torch.align.smem_native import collect_seeds_native
+
+    idx, fwd = genome
+    reads = [np.full(150, 4, np.uint8), fwd[2000:2150].copy()]
+    for at, subs in ((5600, (75,)), (6200, (50, 100)), (2600, (40, 80)), (3200, (70,))):
+        r = fwd[at : at + 150].copy()
+        r[list(subs)] = (r[list(subs)] + 1) % 4
+        reads.append(r)
+    td = tfm.DeviceFMIndex.from_host(idx, "cpu")
+    qs, qlens = tfs.pad_reads(reads, "cpu")
+    R = qs.shape[0]
+    B = tfs.seed_buffers(qs.shape[1])
+    out1, n1, ovf = (t.numpy() for t in tfs.smem_pass(
+        td, qs, qlens, torch.zeros(R, dtype=torch.int32), torch.ones(R, dtype=torch.int32),
+        False, B, B))
+    _, jobs = tfs.pass1_seeds(out1, n1, ovf.copy(), len(reads), OPT)
+    assert sorted({len(j) for j in jobs}) == [0, 1, 2, 3]
+    read_of, qs_j, qlens_j, piv, mi = tfs.pass2_inputs(jobs, qs, qlens)
+    assert read_of.tolist() == [r for r, jl in enumerate(jobs) for _ in jl]
+    assert [(int(p), int(m)) for p, m in zip(piv, mi)] == [j for jl in jobs for j in jl]
+    assert torch.equal(qs_j, qs[torch.from_numpy(read_of)])
+
+    calls = []
+    smem_pass = tfs.smem_pass
+
+    def counted(*a, **k):
+        calls.append(a[1].shape[0])
+        return smem_pass(*a, **k)
+
+    monkeypatch.setattr(tfs, "smem_pass", counted)
+    got = tfs.collect_seeds_device(reads, OPT, td)
+    assert calls == [R, len(read_of)]            # pass 1, then every job at once
+    with both_tables(ref_idx, idx, False) as (jd, _):
+        ref = jfs.collect_seeds_device(ref_idx, reads, REF_OPT, dfm=jd)
+    native = collect_seeds_native(idx, reads, OPT)
+    for read, g, r, nat in zip(reads, got, ref, native):
+        assert fields(g) == fields(r) == fields(nat) == fields(collect_seeds(ref_idx, read, REF_OPT))
