@@ -47,6 +47,34 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Milliseconds per call of ``fn`` on the current CUDA device: CUDA
+    events around the replay of a CUDA graph that holds ``reps`` calls,
+    the best of three replays after a warm one.  The graph replays the
+    launches back to back, with none of the host's work between them, so
+    it reads the device time of a kernel that a run of wrapper calls would
+    hide behind their host time, with no profiler."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    best = None
+    for _ in range(3):
+        start.record()
+        graph.replay()
+        stop.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(stop) / reps
+        best = ms if best is None else min(best, ms)
+    return best
+
+
 # profiler runs that ``device_ms`` threw away because their device records
 # were not the same for every call, and the runs it makes at most
 lost_profiles = 0

@@ -49,14 +49,14 @@ _LL = ctypes.c_longlong
 # C signatures of csrc/*.cu: pointers and the stream as void*, ints as int,
 # row coordinates as long long
 _SIGNATURES = {
-    # occ, words, L2, primary, seq_len, wide, ks, n, out, stream
-    "arachne_rank": [_P] * 3 + [_LL, _LL, _I, _P, _LL, _P, _P],
-    # occ, words, L2, primary, seq_len, wide, qs, qlens, pivots0, min_intvs,
+    # table, L2, primary, seq_len, wide, ks, n, out, stream
+    "arachne_rank": [_P] * 2 + [_LL, _LL, _I, _P, _LL, _P, _P],
+    # table, L2, primary, seq_len, wide, qs, qlens, pivots0, min_intvs,
     # single_sweep, R, L, MAXC, MAXS, ws, out, out_n, overflow, stream
-    "arachne_smem_pass": [_P] * 3 + [_LL, _LL, _I] + [_P] * 4 + [_I] * 5 + [_P] * 5,
-    # occ, words, L2, primary, seq_len, wide, qs, qlens, min_seed_len,
-    # max_intv, R, L, MAXS, out, out_n, overflow, stream
-    "arachne_seed_pass3": [_P] * 3 + [_LL, _LL, _I, _P, _P, _LL, _LL] + [_I] * 3 + [_P] * 4,
+    "arachne_smem_pass": [_P] * 2 + [_LL, _LL, _I] + [_P] * 4 + [_I] * 5 + [_P] * 5,
+    # table, L2, primary, seq_len, wide, qs, qlens, min_seed_len, max_intv,
+    # R, L, MAXS, out, out_n, overflow, stream
+    "arachne_seed_pass3": [_P] * 2 + [_LL, _LL, _I, _P, _P, _LL, _LL] + [_I] * 3 + [_P] * 4,
     # qs, ts, qlens, tlens, ws, h0s, mat, B, qmax, tmax,
     # o_del, e_del, o_ins, e_ins, zdrop, out, stream
     "arachne_extend": [_P] * 7 + [_I] * 8 + [_P, _P],

@@ -1,31 +1,48 @@
 // occ4 of one BWT row: the device routine of kernel K5 (rank.cu), inlined
 // into the seeding state machines S1 and S3 (seed.cu).
 //
-// Layout (arachne_tpu/index/build.py, uploaded as it is): occ holds the
-// checkpoint counts of A, C, G, T before each 128-base block, one row of
-// four T per block; words holds the BWT at 16 bases per uint32, first base
-// in the top two bits, eight words per block.  T is int for indexes under
-// 2^31 rows and long long above (the wide tables).  The launchers check
-// that occ and words start on 16 bytes, so a block's words are two aligned
-// 16-byte vectors and its checkpoint row one (int) or two (long long).
+// Layout (arachne_tpu_torch/ops/fm_rank.py DeviceFMIndex): one 64-byte
+// record per 128-base block, as BWA interleaves its BWT (bwt.h:
+// bwt_occ_intv): the checkpoint counts of A, C, G, T before the block
+// first, then the block's eight words (16 bases per uint32, first base in
+// the top two bits).  T is int for indexes under 2^31 rows and long long
+// above (the wide tables).  int: counts in 16-byte chunk 0, words in
+// chunks 1-2, chunk 3 padding.  long long: counts in chunks 0-1, words in
+// chunks 2-3 (exactly BWA's record).  The launchers check that the table
+// starts on 64 bytes, so a record is one aligned line, and a query reads
+// its first 3 (int) or 4 (long long) 16-byte chunks.
 //
-// What bounds it on an H100: one random gather per query, two sectors that
-// do not depend on each other (the block's 32 bytes of words and its 16- or
-// 32-byte checkpoint row).  A table of a few MB stays in the 50 MB L2; a
-// GRCh38-sized one (about 3.1 GB) does not, and each query then waits on
-// HBM.
+// What bounds it on an H100: one random gather of one line per query.  A
+// table of a few MB stays in the 50 MB L2; a GRCh38-sized one (about 3.1
+// GB) does not, and each query then waits on HBM.  Counts and words in two
+// arrays would cost each query two lines, in two DRAM pages.
 //
 // Design: a query is split into its loads and arachne_occ4_count, which
-// counts them without a branch.  K5 loads into registers
-// (arachne_occ4_load: three or four 16-byte loads, all before the first
-// use).  A caller that needs several queries at once (an extend needs two,
-// S1's backward step two per carried interval) stages them
+// counts them without a branch.  K5 with one thread per query loads into
+// registers (arachne_occ4_load; its group of lanes per query, for tables
+// beyond the L2, is in rank.cu).  A caller that needs several queries at once (an extend
+// needs two, S1's backward step two per carried interval) stages them
 // (arachne_occ4_stage, arachne_cp_wait, arachne_occ4_staged), so that all
 // their loads are in flight together and the queries cost one round trip,
 // not one each.
 #pragma once
 
 #include <cstdint>
+
+// 16-byte chunks of a record that hold counts (1 for int, 2 for long
+// long); the two chunks of words follow them
+template <typename T>
+__host__ __device__ constexpr int arachne_count_chunks() { return sizeof(T) == 4 ? 1 : 2; }
+
+// 16-byte chunks a query reads: its counts and its words
+template <typename T>
+__host__ __device__ constexpr int arachne_occ4_chunks() { return arachne_count_chunks<T>() + 2; }
+
+// Record ``block`` of the table, as 16-byte chunks.
+template <typename T>
+__device__ __forceinline__ const uint4* arachne_record(const uint4* __restrict__ table, T block) {
+    return table + block * 4;
+}
 
 // The bytes one occ4 query needs, as they arrive.
 template <typename T>
@@ -49,7 +66,8 @@ __device__ __forceinline__ long long arachne_join64(uint32_t lo, uint32_t hi) {
     return (long long)(((unsigned long long)hi << 32) | lo);
 }
 
-// The checkpoint row from its one (int) or two (long long) 16-byte chunks.
+// Two checkpoint counts from one 16-byte chunk: counts 2h and 2h + 1 of a
+// long long record's chunk h, or, for int, counts 0-3 of chunk 0.
 template <typename T>
 __device__ __forceinline__ void arachne_set_base(ArachneOcc4Row<T>& r, uint4 a, uint4 b) {
     if constexpr (sizeof(T) == 4) {
@@ -60,23 +78,37 @@ __device__ __forceinline__ void arachne_set_base(ArachneOcc4Row<T>& r, uint4 a, 
     }
 }
 
-// Load Occ(k, .)'s bytes into registers (K5: one query a thread, nothing
-// to wait on but its own loads).
+// A query's row from its chunks c[0 .. arachne_occ4_chunks<T>() - 1].
+template <typename T>
+__device__ __forceinline__ ArachneOcc4Row<T> arachne_occ4_from(
+    const uint4 (&c)[4], T k, int j)
+{
+    constexpr int CC = arachne_count_chunks<T>();
+    ArachneOcc4Row<T> r;
+    arachne_set_base(r, c[0], c[CC - 1]);
+    r.w0 = c[CC];
+    r.w1 = c[CC + 1];
+    r.k = k;
+    r.j = j;
+    return r;
+}
+
+// One 16-byte chunk of a record, by the read-only path.
+__device__ __forceinline__ uint4 arachne_ld16(const uint4* p) { return __ldg(p); }
+
+// Load Occ(k, .)'s bytes into registers (K5 with one thread per query:
+// nothing to wait on but its own loads).
 template <typename T>
 __device__ __forceinline__ ArachneOcc4Row<T> arachne_occ4_load(
-    const T* __restrict__ occ, const uint32_t* __restrict__ words, T primary, T seq_len, T k)
+    const uint4* __restrict__ table, T primary, T seq_len, T k)
 {
     const T kk = arachne_occ4_row(primary, seq_len, k);
-    const T block = kk >> 7;
-    ArachneOcc4Row<T> r;
-    const uint4* w = reinterpret_cast<const uint4*>(words + block * 8);
-    const uint4* c = reinterpret_cast<const uint4*>(occ + block * 4);
-    r.w0 = __ldg(w);
-    r.w1 = __ldg(w + 1);
-    arachne_set_base(r, __ldg(c), sizeof(T) == 4 ? make_uint4(0, 0, 0, 0) : __ldg(c + 1));
-    r.k = k;
-    r.j = (int)(kk & 127);
-    return r;
+    const uint4* rec = arachne_record(table, kk >> 7);
+    uint4 c[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+        c[q] = q < arachne_occ4_chunks<T>() ? arachne_ld16(rec + q) : make_uint4(0, 0, 0, 0);
+    return arachne_occ4_from<T>(c, k, (int)(kk & 127));
 }
 
 // ---- Staged queries (S1, S3).  A thread that needs several queries at
@@ -85,11 +117,6 @@ __device__ __forceinline__ ArachneOcc4Row<T> arachne_occ4_load(
 // to its first use, into the branch that uses it or past another query's
 // count, and each query would cost a round trip again; a copy cannot be
 // moved past the wait, and its bytes hold no registers while in flight.
-
-// 16-byte chunks of a query: the block's words (two), then its checkpoint
-// row (one for int, two for long long)
-template <typename T>
-__host__ __device__ constexpr int arachne_occ4_chunks() { return sizeof(T) == 4 ? 3 : 4; }
 
 // A thread's chunks: chunk q at p[q * stride], the block's threads side by
 // side, so that a warp's accesses to one chunk index hit distinct banks.
@@ -121,17 +148,15 @@ __device__ __forceinline__ ArachneOcc4Ref<T> arachne_occ4_ref(T primary, T seq_l
     return {k, (int)(arachne_occ4_row(primary, seq_len, k) & 127)};
 }
 
-// Issue the copies of Occ(k, .) into chunks q0.. of the stage.
+// Start the copies of Occ(k, .) (the first arachne_occ4_chunks<T>()
+// chunks of its record, one line) into chunks q0.. of the stage.
 template <typename T>
 __device__ __forceinline__ void arachne_occ4_stage(
-    const T* __restrict__ occ, const uint32_t* __restrict__ words, T primary, T seq_len, T k,
-    const ArachneStage& st, int q0)
+    const uint4* __restrict__ table, T primary, T seq_len, T k, const ArachneStage& st, int q0)
 {
-    const T block = arachne_occ4_row(primary, seq_len, k) >> 7;
-    arachne_cp16(st.at(q0), words + block * 8);
-    arachne_cp16(st.at(q0 + 1), words + block * 8 + 4);
-    arachne_cp16(st.at(q0 + 2), occ + block * 4);
-    if constexpr (sizeof(T) == 8) arachne_cp16(st.at(q0 + 3), occ + block * 4 + 2);
+    const uint4* rec = arachne_record(table, arachne_occ4_row(primary, seq_len, k) >> 7);
+#pragma unroll
+    for (int q = 0; q < arachne_occ4_chunks<T>(); ++q) arachne_cp16(st.at(q0 + q), rec + q);
 }
 
 // A staged query's bytes, after arachne_cp_wait.
@@ -139,13 +164,11 @@ template <typename T>
 __device__ __forceinline__ ArachneOcc4Row<T> arachne_occ4_staged(
     const ArachneStage& st, int q0, ArachneOcc4Ref<T> ref)
 {
-    ArachneOcc4Row<T> r;
-    r.w0 = *st.at(q0);
-    r.w1 = *st.at(q0 + 1);
-    arachne_set_base(r, *st.at(q0 + 2), sizeof(T) == 4 ? make_uint4(0, 0, 0, 0) : *st.at(q0 + 3));
-    r.k = ref.k;
-    r.j = ref.j;
-    return r;
+    uint4 c[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+        c[q] = q < arachne_occ4_chunks<T>() ? *st.at(q0 + q) : make_uint4(0, 0, 0, 0);
+    return arachne_occ4_from<T>(c, ref.k, ref.j);
 }
 
 // The C, G and T bits of word v: lo holds each base's low bit, hi its high
@@ -155,52 +178,55 @@ __device__ __forceinline__ void arachne_base_bits(uint32_t v, uint32_t& lo, uint
     hi = (v >> 1) & 0x55555555u;
 }
 
-// Occ(k, c) for c = 0..3 (bwt.c:107-186, arachne_tpu/ops/fm_rank.py:88):
+// The mask of word x of a block for a row at base j of it: whole below j's
+// word, bases 0..j & 15 in it, nothing above.  The shift is 2 * (15 - p)
+// <= 30, so the undefined 32-bit shift of the reference's nvalid == 0 case
+// never arises.
+__device__ __forceinline__ uint32_t arachne_word_mask(int x, int j) {
+    const int wi = j >> 4, p = j & 15;
+    const uint32_t part = ~((1u << (2 * (15 - p))) - 1u);
+    return x < wi ? 0xffffffffu : (x == wi ? part : 0u);
+}
+
+// C, G and T counted in the masked words a and b (two words' bit planes
+// share one popcount, the second shifted onto the odd bits).
+__device__ __forceinline__ void arachne_count_pair(uint32_t a, uint32_t b, int& c1, int& c2,
+                                                   int& c3) {
+    uint32_t loa, hia, lob, hib;
+    arachne_base_bits(a, loa, hia);
+    arachne_base_bits(b, lob, hib);
+    const uint32_t lo = loa | (lob << 1), hi = hia | (hib << 1);
+    const int t = __popc(lo & hi);
+    c3 += t;
+    c2 += __popc(hi) - t;
+    c1 += __popc(lo) - t;
+}
+
+// Occ(k, c) from the base counts and the C, G and T counts of bases 0..j:
 // k == -1 -> 0; k == seq_len -> L2[c+1] - L2[c]; otherwise the checkpoint
-// row plus the bases 0..j of the block.  Words below j's word count whole,
-// j's word keeps its bases 0..j & 15, the words above it count nothing:
-// each word is masked by a select, never by a branch.  The masked-off bases
-// read as A (00) and carry no C, G or T bit, so C, G and T are counted and
-// A is the rest of the j + 1 bases, which is what the reference's count of
-// A less its 127 - j masked-off bases comes to.  Two words' bit planes
-// share one popcount (one shifted onto the odd bits).
+// row plus the counts.  A is the rest of the j + 1 bases: the masked-off
+// bases read as A (00) and carry no C, G or T bit, so this is what the
+// reference's count of A less its 127 - j masked-off bases comes to.
+template <typename T>
+__device__ __forceinline__ T arachne_occ4_finish(int c, T base, int j, int c1, int c2, int c3,
+                                                 const T (&L2)[5], T seq_len, T k) {
+    const int cnt = c == 0 ? j + 1 - c1 - c2 - c3 : (c == 1 ? c1 : (c == 2 ? c2 : c3));
+    return k == seq_len ? L2[c + 1] - L2[c] : (k == -1 ? (T)0 : base + (T)cnt);
+}
+
+// Occ(k, c) for c = 0..3 (bwt.c:107-186, arachne_tpu/ops/fm_rank.py:88)
+// of one query's row.  Each word is masked by a select, never by a branch.
 template <typename T>
 __device__ __forceinline__ void arachne_occ4_count(
     const ArachneOcc4Row<T>& r, const T (&L2)[5], T seq_len, T (&out)[4])
 {
-    const int wi = r.j >> 4;    // the word holding the row
-    const int p = r.j & 15;     // its base within that word
-    // keep bases 0..p: the shift is 2 * (15 - p) <= 30, so the undefined
-    // 32-bit shift of the reference's nvalid == 0 case never arises
-    const uint32_t part = ~((1u << (2 * (15 - p))) - 1u);
     const uint32_t y[8] = {r.w0.x, r.w0.y, r.w0.z, r.w0.w, r.w1.x, r.w1.y, r.w1.z, r.w1.w};
     int c1 = 0, c2 = 0, c3 = 0;
 #pragma unroll
-    for (int x = 0; x < 8; x += 2) {
-        const uint32_t ma = x < wi ? 0xffffffffu : (x == wi ? part : 0u);
-        const uint32_t mb = x + 1 < wi ? 0xffffffffu : (x + 1 == wi ? part : 0u);
-        uint32_t loa, hia, lob, hib;
-        arachne_base_bits(y[x] & ma, loa, hia);
-        arachne_base_bits(y[x + 1] & mb, lob, hib);
-        const uint32_t lo = loa | (lob << 1), hi = hia | (hib << 1);
-        const int t = __popc(lo & hi);
-        c3 += t;
-        c2 += __popc(hi) - t;
-        c1 += __popc(lo) - t;
-    }
-    const int cnt[4] = {r.j + 1 - c1 - c2 - c3, c1, c2, c3};
-    const bool at_end = r.k == seq_len, before = r.k == -1;
+    for (int x = 0; x < 8; x += 2)
+        arachne_count_pair(y[x] & arachne_word_mask(x, r.j),
+                           y[x + 1] & arachne_word_mask(x + 1, r.j), c1, c2, c3);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-        const T v = r.base[c] + (T)cnt[c];
-        out[c] = at_end ? L2[c + 1] - L2[c] : (before ? (T)0 : v);
-    }
-}
-
-template <typename T>
-__device__ __forceinline__ void arachne_occ4(
-    const T* __restrict__ occ, const uint32_t* __restrict__ words,
-    const T (&L2)[5], T primary, T seq_len, T k, T (&out)[4])
-{
-    arachne_occ4_count<T>(arachne_occ4_load<T>(occ, words, primary, seq_len, k), L2, seq_len, out);
+    for (int c = 0; c < 4; ++c)
+        out[c] = arachne_occ4_finish<T>(c, r.base[c], r.j, c1, c2, c3, L2, seq_len, r.k);
 }

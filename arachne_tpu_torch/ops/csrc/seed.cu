@@ -73,8 +73,7 @@ __device__ __forceinline__ T pick(const T (&a)[N], int i) {
 
 template <typename T>
 struct Tables {
-    const T* occ;
-    const uint32_t* words;
+    const uint4* table;   // the record table (rank.cuh)
     T L2[5];
     T primary;
     T seq_len;
@@ -86,8 +85,8 @@ struct Tables {
     // of an interval of size x2 (occ4 at xb - 1 and at xb - 1 + x2) into
     // chunks q0 .. q0 + CHUNKS - 1.
     __device__ __forceinline__ void issue(T xb, T x2, const ArachneStage& st, int q0) const {
-        arachne_occ4_stage<T>(occ, words, primary, seq_len, xb - 1, st, q0);
-        arachne_occ4_stage<T>(occ, words, primary, seq_len, xb - 1 + x2, st, q0 + CHUNKS / 2);
+        arachne_occ4_stage<T>(table, primary, seq_len, xb - 1, st, q0);
+        arachne_occ4_stage<T>(table, primary, seq_len, xb - 1 + x2, st, q0 + CHUNKS / 2);
     }
 
     // The extend's result for base c, once its copies have arrived:
@@ -123,11 +122,10 @@ struct Tables {
 };
 
 template <typename T>
-__device__ Tables<T> load_tables(const T* occ, const uint32_t* words, const T* L2,
-                                 long long primary, long long seq_len) {
+__device__ Tables<T> load_tables(const uint4* table, const T* L2, long long primary,
+                                 long long seq_len) {
     Tables<T> fm;
-    fm.occ = occ;
-    fm.words = words;
+    fm.table = table;
     for (int c = 0; c < 5; ++c) fm.L2[c] = L2[c];
     fm.primary = (T)primary;
     fm.seq_len = (T)seq_len;
@@ -197,8 +195,8 @@ __device__ __forceinline__ int code_at(const int8_t* q, T qlen, T x) {
 
 template <typename T, int G>
 __global__ void __launch_bounds__(SEED_THREADS) smem_pass_kernel(
-    const T* __restrict__ occ, const uint32_t* __restrict__ words,
-    const T* __restrict__ L2, long long primary, long long seq_len,
+    const uint4* __restrict__ table, const T* __restrict__ L2, long long primary,
+    long long seq_len,
     const int8_t* __restrict__ qs, const int* __restrict__ qlens,
     const int* __restrict__ pivots0, const int* __restrict__ min_intvs,
     int single_sweep, int R, int L, int MAXC, int MAXS, T* __restrict__ ws,
@@ -206,7 +204,7 @@ __global__ void __launch_bounds__(SEED_THREADS) smem_pass_kernel(
 {
     const int r = blockIdx.x * blockDim.x + threadIdx.x;
     if (r >= R) return;
-    const Tables<T> fm = load_tables<T>(occ, words, L2, primary, seq_len);
+    const Tables<T> fm = load_tables<T>(table, L2, primary, seq_len);
     extern __shared__ uint4 stage_mem[];
     const ArachneStage st{stage_mem + threadIdx.x, (int)blockDim.x};
     const int8_t* q = qs + (size_t)r * L;
@@ -421,15 +419,15 @@ __global__ void __launch_bounds__(SEED_THREADS) smem_pass_kernel(
 
 template <typename T>
 __global__ void __launch_bounds__(SEED_THREADS) pass3_kernel(
-    const T* __restrict__ occ, const uint32_t* __restrict__ words,
-    const T* __restrict__ L2, long long primary, long long seq_len,
+    const uint4* __restrict__ table, const T* __restrict__ L2, long long primary,
+    long long seq_len,
     const int8_t* __restrict__ qs, const int* __restrict__ qlens,
     long long min_seed_len, long long max_intv, int R, int L, int MAXS,
     T* __restrict__ out, T* __restrict__ out_n, bool* __restrict__ overflow)
 {
     const int r = blockIdx.x * blockDim.x + threadIdx.x;
     if (r >= R) return;
-    const Tables<T> fm = load_tables<T>(occ, words, L2, primary, seq_len);
+    const Tables<T> fm = load_tables<T>(table, L2, primary, seq_len);
     extern __shared__ uint4 stage_mem[];
     const ArachneStage st{stage_mem + threadIdx.x, (int)blockDim.x};
     const int8_t* q = qs + (size_t)r * L;
@@ -512,11 +510,11 @@ int launch_staged(K kernel, int chunks, int R, cudaStream_t s, A... args) {
 // qs (R, L) int8 codes; qlens, pivots0, min_intvs (R,) int32; ws a
 // workspace of R * (8 * MAXC + 5 * MAXS) elements, out (R, MAXS, 5) and
 // out_n (R,), all in the tables' row type (int64 when wide != 0); overflow
-// (R,) bool.  out must be zeroed: only the SMEMs found are written.  occ
-// and words must start on 16 bytes (the launchers check it).
+// (R,) bool.  out must be zeroed: only the SMEMs found are written.  table
+// is the record table and must start on 64 bytes (the launchers check it).
 extern "C" int arachne_smem_pass(
-    const void* occ, const void* words, const void* L2, long long primary,
-    long long seq_len, int wide, const void* qs, const void* qlens,
+    const void* table, const void* L2, long long primary, long long seq_len, int wide,
+    const void* qs, const void* qlens,
     const void* pivots0, const void* min_intvs, int single_sweep, int R, int L,
     int MAXC, int MAXS, void* ws, void* out, void* out_n, void* overflow, void* stream)
 {
@@ -526,21 +524,20 @@ extern "C" int arachne_smem_pass(
     if (wide)
         return launch_staged(
             smem_pass_kernel<long long, SEED_GROUP>, stage_chunks<long long, SEED_GROUP>(), R, s,
-            (const long long*)occ, (const uint32_t*)words, (const long long*)L2, primary,
-            seq_len, (const int8_t*)qs, (const int*)qlens, (const int*)pivots0,
+            (const uint4*)table, (const long long*)L2, primary, seq_len, (const int8_t*)qs, (const int*)qlens, (const int*)pivots0,
             (const int*)min_intvs, single_sweep, R, L, MAXC, MAXS, (long long*)ws,
             (long long*)out, (long long*)out_n, (bool*)overflow);
     return launch_staged(
         smem_pass_kernel<int, SEED_GROUP>, stage_chunks<int, SEED_GROUP>(), R, s,
-        (const int*)occ, (const uint32_t*)words, (const int*)L2, primary, seq_len,
+        (const uint4*)table, (const int*)L2, primary, seq_len,
         (const int8_t*)qs, (const int*)qlens, (const int*)pivots0,
         (const int*)min_intvs, single_sweep, R, L, MAXC, MAXS, (int*)ws, (int*)out,
         (int*)out_n, (bool*)overflow);
 }
 
 extern "C" int arachne_seed_pass3(
-    const void* occ, const void* words, const void* L2, long long primary,
-    long long seq_len, int wide, const void* qs, const void* qlens,
+    const void* table, const void* L2, long long primary, long long seq_len, int wide,
+    const void* qs, const void* qlens,
     long long min_seed_len, long long max_intv, int R, int L, int MAXS,
     void* out, void* out_n, void* overflow, void* stream)
 {
@@ -550,12 +547,11 @@ extern "C" int arachne_seed_pass3(
     if (wide)
         return launch_staged(
             pass3_kernel<long long>, 2 * arachne_occ4_chunks<long long>(), R, s,
-            (const long long*)occ, (const uint32_t*)words, (const long long*)L2, primary,
-            seq_len, (const int8_t*)qs, (const int*)qlens, min_seed_len, max_intv, R, L,
+            (const uint4*)table, (const long long*)L2, primary, seq_len, (const int8_t*)qs, (const int*)qlens, min_seed_len, max_intv, R, L,
             MAXS, (long long*)out, (long long*)out_n, (bool*)overflow);
     return launch_staged(
         pass3_kernel<int>, 2 * arachne_occ4_chunks<int>(), R, s,
-        (const int*)occ, (const uint32_t*)words, (const int*)L2, primary, seq_len,
+        (const uint4*)table, (const int*)L2, primary, seq_len,
         (const int8_t*)qs, (const int*)qlens, min_seed_len, max_intv, R, L, MAXS,
         (int*)out, (int*)out_n, (bool*)overflow);
 }

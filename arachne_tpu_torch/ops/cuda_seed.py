@@ -24,8 +24,8 @@ def _check_reads(name, fm, qs, per_read):
 
 
 def _outputs(fm, dev, R, MAXS):
-    out = torch.zeros((R, MAXS, 5), dtype=fm.occ.dtype, device=dev)
-    out_n = torch.empty(R, dtype=fm.occ.dtype, device=dev)
+    out = torch.zeros((R, MAXS, 5), dtype=fm.idt, device=dev)
+    out_n = torch.empty(R, dtype=fm.idt, device=dev)
     overflow = torch.empty(R, dtype=torch.bool, device=dev)
     return out, out_n, overflow
 
@@ -40,14 +40,14 @@ def smem_pass_cuda(fm, qs, qlens, pivots0, min_intvs, single_sweep: bool, MAXC: 
         raise ValueError(f"smem_pass_cuda: MAXC {MAXC} / MAXS {MAXS} below 1")
     out, out_n, overflow = _outputs(fm, dev, R, MAXS)
     # curr, prev (MAXC x 4 each) and the sweep's SMEMs (MAXS x 5) per read
-    ws = torch.empty(R * (8 * MAXC + 5 * MAXS), dtype=fm.occ.dtype, device=dev)
+    ws = torch.empty(R * (8 * MAXC + 5 * MAXS), dtype=fm.idt, device=dev)
     if R:
         build.launch(
             smem_pass_cuda, "arachne_smem_pass", dev,
-            fm.occ.data_ptr(), fm.words.data_ptr(), fm.L2.data_ptr(), fm.primary,
-            fm.seq_len, wide, qs.data_ptr(), qlens.data_ptr(), pivots0.data_ptr(),
-            min_intvs.data_ptr(), int(single_sweep), R, L, MAXC, MAXS, ws.data_ptr(),
-            out.data_ptr(), out_n.data_ptr(), overflow.data_ptr(),
+            fm.table.data_ptr(), fm.L2.data_ptr(), fm.primary, fm.seq_len, wide,
+            qs.data_ptr(), qlens.data_ptr(), pivots0.data_ptr(), min_intvs.data_ptr(),
+            int(single_sweep), R, L, MAXC, MAXS, ws.data_ptr(), out.data_ptr(),
+            out_n.data_ptr(), overflow.data_ptr(),
         )
     return out, out_n, overflow
 
@@ -61,9 +61,9 @@ def pass3_cuda(fm, qs, qlens, min_seed_len: int, max_intv: int, MAXS: int):
     if R:
         build.launch(
             pass3_cuda, "arachne_seed_pass3", dev,
-            fm.occ.data_ptr(), fm.words.data_ptr(), fm.L2.data_ptr(), fm.primary,
-            fm.seq_len, wide, qs.data_ptr(), qlens.data_ptr(), min_seed_len, max_intv,
-            R, L, MAXS, out.data_ptr(), out_n.data_ptr(), overflow.data_ptr(),
+            fm.table.data_ptr(), fm.L2.data_ptr(), fm.primary, fm.seq_len, wide,
+            qs.data_ptr(), qlens.data_ptr(), min_seed_len, max_intv, R, L, MAXS,
+            out.data_ptr(), out_n.data_ptr(), overflow.data_ptr(),
         )
     return out, out_n, overflow
 

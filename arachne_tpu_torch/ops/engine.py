@@ -84,7 +84,7 @@ def device_tables(idx: FMIndex, device: torch.device) -> DeviceFMIndex:
         if dfm is None:
             wide = DeviceFMIndex.is_wide(idx)
             if device.type == "cuda":
-                need = DeviceFMIndex.table_bytes(idx, wide)
+                need = DeviceFMIndex.table_bytes(idx)
                 free, _ = torch.cuda.mem_get_info(device)
                 if need > free:
                     raise RuntimeError(
@@ -121,10 +121,10 @@ def warmup(device: torch.device) -> None:
         _, z = global_z(qs, ts, ql, tl, one, p.mat, **p.gaps())
         traceback(z, ql, tl, one, max_steps=96)
         # a one-block table of As and one read of 32 As
-        fm = DeviceFMIndex(
-            occ=torch.zeros((2, 4), dtype=torch.int32, device=device),
-            words=torch.zeros(8, dtype=torch.int32, device=device),
-            L2=torch.tensor([0, 128, 128, 128, 128], dtype=torch.int32, device=device),
+        fm = DeviceFMIndex.from_planar(
+            torch.zeros((2, 4), dtype=torch.int32, device=device),
+            torch.zeros(8, dtype=torch.int32, device=device),
+            torch.tensor([0, 128, 128, 128, 128], dtype=torch.int32, device=device),
             primary=64, seq_len=128, l_pac=64,
         )
         occ4_device(fm, ql)

@@ -1,15 +1,19 @@
 """Device-resident FM-index rank queries (occ4 / bwt_extend) in PyTorch.
 
-The port of arachne_tpu/ops/fm_rank.py.  The planar index layout
-(arachne_tpu/index/build.py) uploads as it is: ``occ`` (checkpoint counts
-every 128 bases, one row per block plus one past the end) and ``bwt_words``
-(16 bases per 32-bit word, first base in the top two bits).  A rank query
-gathers one checkpoint row and the block's words, masks the words to the
-position and counts each base with the bit trick of bwt.c:98-105.
+The port of arachne_tpu/ops/fm_rank.py.  The host index
+(arachne_tpu_torch/index/build.py) is planar: ``occ`` (checkpoint counts
+every 128 bases, one row per block plus one past the end) and
+``bwt_words`` (16 bases per 32-bit word, first base in the top two bits).
+On the device the two are interleaved as BWA interleaves them (bwt.h:
+bwt_occ_intv): one 64-byte record per 128-base block, its four checkpoint
+counts first and its eight words after them, so that a rank query reads
+one aligned 64-byte line, not two lines gigabytes apart.  A rank query
+gathers the block's record, masks the words to the position and counts
+each base with the bit trick of bwt.c:98-105.
 
 Row coordinates and counts are int32 for indexes under 2^31 rows
 (forward + reverse) and int64 above (the "wide" tables: GRCh38 forward +
-reverse is ~6.2e9 rows).  Everything downstream keys off ``occ``'s dtype.
+reverse is ~6.2e9 rows).  Everything downstream keys off the table's dtype.
 
 ``occ4_device`` is the wrapper of kernel K5 (csrc/rank.cu): the plain
 version ``occ4_torch`` for CPU tensors, the kernel for CUDA tensors.
@@ -28,59 +32,100 @@ import torch
 
 from ..index.fmindex import FMIndex
 
-from .cuda_rank import rank_cuda
+from .cuda_rank import RECORD_BYTES, rank_cuda
 
 _LANE = 0x55555555
 _M32 = 0xFFFFFFFF
 
 
+def _words_view(table: torch.Tensor) -> torch.Tensor:
+    """The (n, 8) int32 words of a record table: after the four int32
+    counts (and before 16 bytes of padding), or after the four int64 ones."""
+    if table.dtype == torch.int64:
+        return table[:, 4:8].view(torch.int32)
+    return table[:, 4:12]
+
+
 @dataclass(frozen=True)
 class DeviceFMIndex:
-    """An index's rank tables on one torch device."""
+    """An index's rank tables on one torch device: one 64-byte record per
+    128-base block and one past the end, (n_blocks + 1, 16) int32 (four
+    counts, eight words, four of padding) or (n_blocks + 1, 8) int64 (four
+    counts, then the eight words in four int64).  The last record holds the
+    one-past-the-end counts and zero words; no query reads those words."""
 
-    occ: torch.Tensor     # (n_blocks + 1, 4) int32, or int64 when wide
-    words: torch.Tensor   # (n_blocks * 8,) int32: the uint32 BWT words' bits
-    L2: torch.Tensor      # (5,) occ's dtype
+    table: torch.Tensor
+    L2: torch.Tensor      # (5,) the table's dtype
     primary: int
     seq_len: int
     l_pac: int
 
     @property
+    def occ(self) -> torch.Tensor:
+        """(n_blocks + 1, 4) checkpoint counts: a view into the table."""
+        return self.table[:, 0:4]
+
+    @property
+    def words(self) -> torch.Tensor:
+        """(n_blocks + 1, 8) int32, the uint32 BWT words' bits: a view into
+        the table (the last row zero)."""
+        return _words_view(self.table)
+
+    @property
     def idt(self) -> torch.dtype:
         """Row-coordinate dtype: int64 iff the tables are wide."""
-        return self.occ.dtype
+        return self.table.dtype
 
     @property
     def device(self) -> torch.device:
-        return self.occ.device
+        return self.table.device
 
     @staticmethod
     def is_wide(idx: FMIndex) -> bool:
         return idx.seq_len >= (1 << 31)
 
     @staticmethod
-    def table_bytes(idx: FMIndex, wide: bool) -> int:
-        """Device bytes of the occ and word tables ``from_host`` would upload."""
-        return idx.fm.occ.size * (8 if wide else 4) + idx.fm.bwt_words.nbytes
+    def table_bytes(idx: FMIndex) -> int:
+        """Device bytes of the record table ``from_host`` would upload, at
+        either width."""
+        return idx.fm.occ.shape[0] * RECORD_BYTES
+
+    @staticmethod
+    def record_table(occ: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
+        """The record table of planar tables on their device: occ (n, 4)
+        int32 or int64, words (8 * (n - 1),) int32."""
+        n = occ.shape[0]
+        if words.numel() != 8 * (n - 1):
+            raise ValueError(f"{words.numel()} words for {n - 1} blocks")
+        table = torch.zeros((n, RECORD_BYTES // occ.element_size()), dtype=occ.dtype,
+                            device=occ.device)
+        table[:, 0:4] = occ
+        _words_view(table)[: n - 1] = words.reshape(n - 1, 8)
+        return table
+
+    @staticmethod
+    def from_planar(occ, words, L2, primary: int, seq_len: int, l_pac: int) -> "DeviceFMIndex":
+        """The index of planar tables (torch tensors on one device: occ (n,
+        4), words (8 * (n - 1),) int32, L2 (5,) in occ's dtype)."""
+        return DeviceFMIndex(table=DeviceFMIndex.record_table(occ, words), L2=L2,
+                             primary=int(primary), seq_len=int(seq_len), l_pac=int(l_pac))
 
     @staticmethod
     def from_host(idx: FMIndex, device, wide: bool = None) -> "DeviceFMIndex":
+        """Interleave the host index's planar tables into records on the
+        host, then upload the one table."""
         if wide is None:
             wide = DeviceFMIndex.is_wide(idx)
         it = np.int64 if wide else np.int32
         dev = torch.device(device)
-
-        def up(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-        return DeviceFMIndex(
-            occ=up(idx.fm.occ.astype(it)),
-            words=up(idx.fm.bwt_words.view(np.int32)),
-            L2=up(np.asarray(idx.fm.L2).astype(it)),
-            primary=int(idx.primary),
-            seq_len=int(idx.seq_len),
-            l_pac=int(idx.l_pac),
+        host = DeviceFMIndex.from_planar(
+            torch.from_numpy(idx.fm.occ.astype(it)),
+            torch.from_numpy(np.ascontiguousarray(idx.fm.bwt_words).view(np.int32)),
+            torch.from_numpy(np.asarray(idx.fm.L2).astype(it)),
+            idx.primary, idx.seq_len, idx.l_pac,
         )
+        return DeviceFMIndex(table=host.table.to(dev), L2=host.L2.to(dev), primary=host.primary,
+                             seq_len=host.seq_len, l_pac=host.l_pac)
 
 
 def _popcount32(v: torch.Tensor) -> torch.Tensor:
@@ -103,7 +148,7 @@ def occ4_torch(fm: DeviceFMIndex, k: torch.Tensor) -> torch.Tensor:
     block = kk >> 7
     base = fm.occ[block]                                           # (..., 4)
     widx = torch.arange(8, dtype=torch.int64, device=k.device)
-    words = fm.words[(block * 8)[..., None] + widx].long() & _M32  # (..., 8)
+    words = fm.words[block].long() & _M32                          # (..., 8)
     j = kk & 127
     wi = (j >> 4)[..., None]
     p = (j & 15)[..., None]

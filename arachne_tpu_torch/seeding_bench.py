@@ -6,15 +6,16 @@
 The port of scripts/seeding_microbench.py and the entry point of kernel K5.
 On the given index (by default a 2 Mbp random genome, indexed in a
 temporary directory) and on a synthetic table of GRCh38's size (48.4 M
-blocks of wide int64 tables, about 3.1 GB of random words and counts from
-a seeded generator on the card: seeding's rank gathers land in a table of
-that size, not in the 50 MB L2), it
+64-byte records of a wide int64 table, about 3.1 GB of random words and
+counts from a seeded generator on the card: seeding's rank gathers land
+in a table of that size, not in the 50 MB L2), it
 
   * holds K5 to its plain version on 2048 rows, edge rows included
     (integers: tolerance 0);
   * times K5 and the plain version at B = 2^14, 2^17 and 2^20 uniformly
-    random rows, with CUDA events and as device time from torch.profiler,
-    in rank queries/s;
+    random rows, with CUDA events, K5 also by CUDA events around a CUDA
+    graph of its launches, and as device time from torch.profiler, in rank
+    queries/s, beside the bytes the batch must move (``rank_bytes``);
   * on the index only: times seed collection on the same reads (150 bp
     from the genome, with a few substitutions) through
     ``collect_seeds_device`` (kernels S1 and S3 and their host glue)
@@ -41,7 +42,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from .device import cuda_ms, device_ms, probe, resolve_device
+from .device import cuda_ms, device_ms, graph_ms, probe, resolve_device
 from .ops.cuda_seed import pass3_cuda, smem_pass_cuda
 from .ops.fm_rank import DeviceFMIndex, occ4_device, occ4_torch
 from .ops.fm_seed import collect_seeds_device
@@ -52,21 +53,22 @@ BATCHES = (1 << 14, 1 << 17, 1 << 20)
 
 
 def synthetic_table(device, n_blocks: int = GRCH38_BLOCKS, seed: int = 0) -> DeviceFMIndex:
-    """Wide (int64) rank tables of ``n_blocks`` blocks filled with random
-    words and counts from a seeded generator on ``device``.  Ranks over it
-    are meaningless but exactly defined, so K5 and its plain version must
-    still agree."""
+    """A wide (int64) record table of ``n_blocks`` blocks filled with
+    random counts and words from a seeded generator on ``device``, in
+    place: no planar copy, so the peak is the one table.  Ranks over it are
+    meaningless but exactly defined, so K5 and its plain version must still
+    agree."""
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     seq_len = n_blocks * 128
-    occ = torch.randint(0, seq_len, (n_blocks + 1, 4), dtype=torch.int64, device=device,
-                        generator=g)
-    words = torch.randint(-(1 << 31), 1 << 31, (n_blocks * 8,), dtype=torch.int32,
-                          device=device, generator=g)
+    table = torch.empty((n_blocks + 1, 8), dtype=torch.int64, device=device)
+    table[:, 0:4].random_(0, seq_len, generator=g)
+    table[:, 4:8].view(torch.int32).random_(-(1 << 31), 1 << 31, generator=g)
+    table[-1, 4:8] = 0   # no block past the end
     L2 = torch.tensor([0, seq_len // 4, seq_len // 2, 3 * seq_len // 4, seq_len],
                       dtype=torch.int64, device=device)
-    return DeviceFMIndex(occ=occ, words=words, L2=L2, primary=seq_len // 3,
-                         seq_len=seq_len, l_pac=seq_len // 2)
+    return DeviceFMIndex(table=table, L2=L2, primary=seq_len // 3, seq_len=seq_len,
+                         l_pac=seq_len // 2)
 
 
 def parity_rows(fm: DeviceFMIndex, n: int = 2048, seed: int = 1) -> torch.Tensor:
@@ -90,18 +92,29 @@ def rank_parity(fm: DeviceFMIndex, n: int = 2048) -> int:
     return err
 
 
+def rank_bytes(fm: DeviceFMIndex, B: int) -> int:
+    """The bytes K5 must move for B queries: each query's row read, the
+    checkpoint counts and the 32 bytes of words of its block gathered, and
+    its four counts written (104 bytes a query for int64 tables, 68 for
+    int32; the int32 record's 16 bytes of padding are not needed)."""
+    size = fm.table.element_size()
+    return B * (size + 4 * size + 32 + 4 * size)
+
+
 def time_rank(fm: DeviceFMIndex, B: int, seed: int = 2) -> Dict[str, float]:
     """K5 and its plain version on B uniform rows: CUDA events around 20
-    calls (3 for the plain version), and the device time alone from
-    torch.profiler (the events also count the host's launch gaps, which
-    bound small batches)."""
+    calls (3 for the plain version), CUDA events around the replay of a
+    CUDA graph of 20 launches (no host work between them), and the device
+    time alone from torch.profiler (the first also counts the host's launch
+    gaps, which bound small batches)."""
     g = torch.Generator(device=fm.device)
     g.manual_seed(seed)
     ks = torch.randint(0, fm.seq_len, (B,), dtype=fm.idt, device=fm.device, generator=g)
     kernel, plain = (lambda: occ4_device(fm, ks)), (lambda: occ4_torch(fm, ks))
     ms, plain_ms = cuda_ms(kernel, 20), cuda_ms(plain, 3)
     dev_ms, plain_dev_ms = device_ms(kernel, 20), device_ms(plain, 3)
-    return {"B": B, "ms": ms, "plain_ms": plain_ms,
+    return {"B": B, "ms": ms, "plain_ms": plain_ms, "graph_ms": graph_ms(kernel, 20),
+            "bytes": rank_bytes(fm, B),
             "rank_qps": B / ms * 1e3, "plain_rank_qps": B / plain_ms * 1e3,
             "device_ms": dev_ms, "plain_device_ms": plain_dev_ms,
             "device_rank_qps": B / dev_ms * 1e3 if dev_ms else None}
@@ -174,13 +187,14 @@ def seeding_rates(idx, fm: DeviceFMIndex, reads: List[np.ndarray], opt) -> Dict[
 def table_result(name: str, fm: DeviceFMIndex) -> dict:
     """K5's parity and timings on one table, printed as they come."""
     row = {"seq_len": fm.seq_len, "wide": fm.idt == torch.int64,
-           "bytes": sum(x.numel() * x.element_size() for x in (fm.occ, fm.words)),
+           "bytes": fm.table.numel() * fm.table.element_size(),
            "max_abs_err": rank_parity(fm), "batches": []}
     for B in BATCHES:
         b = time_rank(fm, B)
         row["batches"].append(b)
         print(f"{name:>13} B={B:>8}: K5 {b['ms']:.4f} ms ({b['rank_qps'] / 1e6:.1f} M "
-              f"rank queries/s), device time {b['device_ms']} ms; plain "
+              f"rank queries/s), graph {b['graph_ms']:.4f} ms, device time "
+              f"{b['device_ms']} ms; plain "
               f"{b['plain_ms']:.4f} ms ({b['plain_rank_qps'] / 1e6:.1f} M/s), device time "
               f"{b['plain_device_ms']} ms", flush=True)
     return row

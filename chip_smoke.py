@@ -8,7 +8,8 @@ Run from the root of a checkout, with no arguments:
 Phases (any failure raises and the script exits non-zero, printing no
 result line):
 
-  1. probe the card and build the CUDA kernels from ops/csrc with nvcc;
+  1. probe the card, build the CUDA kernels from ops/csrc with nvcc, log
+     the L2's fetch granularity and measure the L2 and HBM copy rates;
   2. kernel parity at the main path's shapes: K1 extension (4096 x 192 x
      512), K2 local SW + score2 (1024 x 192 x 768), K3 global score (1024 x
      192 x 320), K3 direction bytes + K4 traceback (128 x 192 x 320, gapped).
@@ -31,7 +32,8 @@ result line):
   library must load;
   2b. seeding kernels: K5 rank queries on the library's index and on a
      synthetic GRCh38-sized wide table (2048 rows each, edge rows
-     included); S1 (pass 1, and pass 2: every job of pass 1's SMEMs in one
+     included; one thread a query on the index, which fits the L2, a group
+     of four lanes on the wide table, which does not); S1 (pass 1, and pass 2: every job of pass 1's SMEMs in one
      launch, as collect_seeds_device runs it) and S3 on one superbatch of
      the library (4096 pairs, 8192 reads of 150 bp), with the main path's
      buffers (seed_buffers of the padded width: no read may overflow) and
@@ -39,7 +41,9 @@ result line):
      on the card exactly (out, out_n and the overflow flags); both are
      timed with CUDA events, and the kernels also by torch.profiler
      (``device_ms``, the zeroing of out included; S1 on its pass-1 and on
-     its pass-2 launch; K5 on 2^20 uniform rows of the wide table).
+     its pass-2 launch; K5 on 2^20 uniform rows of the wide table, and also
+     by CUDA events around a CUDA graph of 20 launches, ``graph_ms``: the
+     two readings are flagged in the log when they differ by over 10%).
      Then K5's own path, ``python -m arachne_tpu_torch.seeding_bench`` on
      the library's index: rank queries/s at three batch sizes on both
      tables, and device against host seeding on 4096 reads;
@@ -63,6 +67,7 @@ nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import ctypes
 import filecmp
 import json
 import os
@@ -98,9 +103,13 @@ DP_INSTR_PER_CELL = 5
 # a traceback step: the z address, the byte's shift and mask, the op, the
 # two coordinate updates
 TRACEBACK_OPS_PER_STEP = 6
-# an occ4 row reads one 32-byte sector of checkpoint counts and one of BWT
-# words
+# an occ4 row of S1/S3 reads its block's 64-byte record (checkpoint counts
+# and BWT words, rank.cuh); K5's bound also counts its query's read and its
+# result's write (seeding_bench.rank_bytes)
 RANK_ROW_BYTES = 64
+# graph-timed and profiled device times of K5 that differ by more than this
+# share are flagged in the log
+K5_READINGS_APART = 0.10
 CLOCKS = {}         # nvidia-smi's SM clocks in MHz, read in phase 1
 RATES = {}          # bytes/s: "l2", measured in phase 1
 
@@ -225,8 +234,12 @@ def probe_and_build():
     if not CLOCKS["max_sm"]:
         raise RuntimeError("nvidia-smi gave no maximum SM clock: no bound can be computed")
     lib_t0 = time.perf_counter()
-    build.get_lib()
+    lib = build.get_lib()
     log(f"   kernels: {build.BUILD_INFO['path']}")
+    gran = ctypes.c_longlong(0)
+    lib.arachne_l2_fetch_granularity.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+    rc = lib.arachne_l2_fetch_granularity(ctypes.byref(gran))
+    log(f"   cudaLimitMaxL2FetchGranularity: {gran.value} bytes (rc {rc})")
     log(f"   nvcc build {build.BUILD_INFO['seconds']:.1f} s "
         f"(load {time.perf_counter() - lib_t0:.1f} s)")
     for line in str(build.BUILD_INFO["log"]).splitlines():
@@ -485,7 +498,7 @@ def seeding_parity(dev, lib, work):
     from arachne_tpu_torch.config import MemOptions, PipelineOptions
     from arachne_tpu_torch.index import FMIndex, load_index
     from arachne_tpu_torch import device, seeding_bench
-    from arachne_tpu_torch.device import cuda_ms, device_ms
+    from arachne_tpu_torch.device import cuda_ms, device_ms, graph_ms
     from arachne_tpu_torch.measure import library_reads
     from arachne_tpu_torch.ops.fm_rank import DeviceFMIndex, occ4_device
     from arachne_tpu_torch.ops.fm_seed import (
@@ -566,6 +579,14 @@ def seeding_parity(dev, lib, work):
     ks = torch.randint(0, wide.seq_len, (seeding_bench.BATCHES[-1],), dtype=wide.idt,
                        device=dev, generator=g)
     k5_device_ms = device_ms(lambda: occ4_device(wide, ks), 10)
+    k5_graph_ms = graph_ms(lambda: occ4_device(wide, ks), 20)
+    flag = ""
+    if k5_device_ms is None:
+        flag = "; FLAG: no profiler reading to hold the graph's against"
+    elif abs(k5_graph_ms - k5_device_ms) > K5_READINGS_APART * k5_device_ms:
+        flag = f"; FLAG: the two readings differ by more than {K5_READINGS_APART:.0%}"
+    log(f"   K5 at {ks.numel()} rows of the wide table: {k5_graph_ms:.4f} ms by CUDA events "
+        f"around a graph of 20 launches, {on_card(k5_device_ms)} by the profiler{flag}")
     del wide, ks
 
     # K5's own path: the rank benchmark, counted from zero ----------------
@@ -576,11 +597,14 @@ def seeding_parity(dev, lib, work):
     if k5_launches <= 0:
         raise AssertionError("K5 never launched in seeding_bench")
     at = {name: t["batches"][-1] for name, t in bench["tables"].items()}
+    for name, b in at.items():
+        log(f"   K5 in seeding_bench, {name}, {b['B']} rows: {b['graph_ms']:.4f} ms by a graph, "
+            f"{on_card(b['device_ms'])} by the profiler, {b['bytes']} bytes to move")
     rows["K5"] = dict(err=err_k5, ms=at["grch38_sized"]["ms"],
-                      device_ms=k5_device_ms,
+                      device_ms=k5_device_ms, graph_ms=k5_graph_ms,
                       plain_ms=at["grch38_sized"]["plain_ms"],
                       rank_rows=at["grch38_sized"]["B"],
-                      **bound(nbytes=at["grch38_sized"]["B"] * RANK_ROW_BYTES),
+                      **bound(nbytes=at["grch38_sized"]["bytes"]),
                       rank_qps={name: b["rank_qps"] for name, b in at.items()},
                       plain_rank_qps={name: b["plain_rank_qps"] for name, b in at.items()})
     log_rows(rows)
@@ -777,7 +801,7 @@ def main() -> int:
                  "library_ms": None},
                 **{k: v for k, v in rows[key].items()
                    if k.endswith("rank_qps") or k.startswith("pass2_")
-                   or k in ("cells", "rank_rows", "steps", "device_ms")},
+                   or k in ("cells", "rank_rows", "steps", "device_ms", "graph_ms")},
             )
             for key, fn, src, rep in KERNELS
         ]

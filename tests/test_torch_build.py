@@ -70,7 +70,7 @@ def test_bound_takes_the_slower_of_operations_and_bytes(monkeypatch, kw, ms, by)
 
 def test_ab_takes_the_seeding_kernels():
     a = ab.parser().parse_args([".", "--kernels", *SEEDING])
-    assert a.kernels == ["S1 pass 1", "S1 pass 2", "S3", "K5"]
+    assert a.kernels == ["S1 pass 1", "S1 pass 2", "S3", "K5", "K5 index"]
     with pytest.raises(SystemExit):
         ab.parser().parse_args([".", "--kernels", "S2"])
 
@@ -98,21 +98,39 @@ def test_seeding_problems_build_their_inputs():
     assert fm_seed.pass3(*cases["S3"])[0].shape == (64, B, 5)
     wide, ks = cases["K5"]
     assert wide.idt == torch.int64 and fm_rank.occ4_device(wide, ks).shape == (999, 4)
-    for name, launcher in zip(SEEDING, (smem_pass_cuda, smem_pass_cuda, pass3_cuda, rank_cuda)):
+    narrow, ks = cases["K5 index"]
+    assert narrow is fm and fm_rank.occ4_device(narrow, ks).shape == (999, 4)
+    launchers = (smem_pass_cuda, smem_pass_cuda, pass3_cuda, rank_cuda, rank_cuda)
+    for name, launcher in zip(SEEDING, launchers, strict=True):
         fn, args, kw = ab.case(name, torch.device("cpu"), None, cases)
         assert fn is launcher and args == list(cases[name]) and kw == {}
 
 
 def test_tables_off_16_bytes_are_refused():
-    """rank.cuh reads occ and words as 16-byte vectors: a view that starts
-    inside an allocation is refused before any launch."""
+    """rank.cuh reads a record of the table as one aligned 64-byte line: a
+    view that starts inside an allocation, off 64 bytes, is refused before
+    any launch (and the helper refuses any other size it is given)."""
     import torch
 
     t = torch.zeros(64, dtype=torch.int32)
-    build.require_aligned(t, "words", 16)
+    build.require_aligned(t, "table", 64)
+    build.require_aligned(t[16:], "table", 64)
     build.require_aligned(t[4:], "words", 16)
+    with pytest.raises(ValueError, match="not on 64 bytes"):
+        build.require_aligned(t[4:], "table", 64)
     with pytest.raises(ValueError, match="not on 16 bytes"):
         build.require_aligned(t[1:], "words", 16)
+
+
+def test_ab_knows_a_parent_with_planar_tables(tmp_path):
+    """ab hands a parent whose seeding entry points take occ and words
+    apart (before the record table) planar copies; this checkout's own
+    sources take the record table."""
+    assert not ab.takes_planar_tables(build.CSRC)
+    (tmp_path / "rank.cu").write_text(
+        'extern "C" int arachne_rank(\n    const void* occ, const void* words, const void* L2,')
+    assert ab.takes_planar_tables(str(tmp_path))
+    assert len(ab.PLANAR_SIGNATURES["arachne_rank"]) == len(build._SIGNATURES["arachne_rank"]) + 1
 
 
 class _Span:

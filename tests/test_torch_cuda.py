@@ -301,16 +301,33 @@ def test_rank_kernel_matches_plain(dev, seeding_genome, wide):
 
     idx, _ = seeding_genome
     tables = [DeviceFMIndex.from_host(idx, dev, wide=wide)]
-    if wide:   # random words and counts over 4096 blocks
-        tables.append(synthetic_table(dev, 4096))
+    # random words and counts over 4096 blocks, and over 2^20 blocks (64 MB:
+    # beyond the 50 MB L2, where K5 takes a group of lanes per query)
+    if wide:
+        tables += [synthetic_table(dev, 4096), synthetic_table(dev, 1 << 20)]
+    else:
+        g = torch.Generator(device=dev)
+        g.manual_seed(5)
+        n_blocks = 1 << 20
+        tables.append(DeviceFMIndex.from_planar(
+            torch.randint(0, n_blocks * 128, (n_blocks + 1, 4), dtype=torch.int32, device=dev,
+                          generator=g),
+            torch.randint(-(1 << 31), 1 << 31, (n_blocks * 8,), dtype=torch.int32, device=dev,
+                          generator=g),
+            torch.tensor([0, 1 << 25, 1 << 26, 3 << 25, 1 << 27], dtype=torch.int32, device=dev),
+            n_blocks * 128 // 3, n_blocks * 128, n_blocks * 64))
     for fm in tables:
-        ks = parity_rows(fm, 4096)
-        before = rank_cuda.launches
-        got = occ4_device(fm, ks)
-        assert rank_cuda.launches == before + 1
-        assert torch.equal(got, occ4_torch(fm, ks))
-        if fm.seq_len == idx.seq_len:
-            assert np.array_equal(got.cpu().numpy(), idx.occ4(ks.cpu().numpy().astype(np.int64)))
+        # a whole number of blocks of 64 queries, then a last block of a
+        # few groups, and one query (the edge rows come first)
+        for n in (4096, 4089, 1):
+            ks = parity_rows(fm, 4096)[:n]
+            before = rank_cuda.launches
+            got = occ4_device(fm, ks)
+            assert rank_cuda.launches == before + 1
+            assert torch.equal(got, occ4_torch(fm, ks))
+            if fm.seq_len == idx.seq_len:
+                assert np.array_equal(got.cpu().numpy(),
+                                      idx.occ4(ks.cpu().numpy().astype(np.int64)))
 
 
 @pytest.mark.cuda
@@ -370,11 +387,12 @@ def seeding_genome_fwd(idx):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("table", ["occ", "words"])
-def test_seed_launchers_refuse_misaligned_tables(dev, seeding_genome, table):
-    """rank.cuh reads occ and words as 16-byte vectors: a table that
-    starts 4 bytes into its allocation is refused by every launcher before
-    it launches."""
+@pytest.mark.parametrize("bad_table", ["on 16 bytes", "on 4 bytes", "planar shape"])
+def test_seed_launchers_refuse_misaligned_tables(dev, seeding_genome, bad_table):
+    """rank.cuh reads a record as one aligned 64-byte line: a record table
+    that starts 16 or 4 bytes into its allocation, or one shaped as the
+    planar counts (n, 4), is refused by every launcher before it
+    launches."""
     import dataclasses
 
     from arachne_tpu_torch.ops.cuda_rank import rank_cuda
@@ -384,18 +402,22 @@ def test_seed_launchers_refuse_misaligned_tables(dev, seeding_genome, table):
 
     idx, reads = seeding_genome
     fm = DeviceFMIndex.from_host(idx, dev)
-    t = getattr(fm, table)
-    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
-    shifted = buf[1:].view(t.shape)
-    shifted.copy_(t)
-    bad = dataclasses.replace(fm, **{table: shifted})
+    t = fm.table
+    if bad_table == "planar shape":
+        bad, match = dataclasses.replace(fm, table=fm.occ.contiguous()), "shape"
+    else:
+        shift = 4 if bad_table == "on 16 bytes" else 1
+        buf = torch.empty(t.numel() + shift, dtype=t.dtype, device=dev)
+        shifted = buf[shift:].view(t.shape)
+        shifted.copy_(t)
+        bad, match = dataclasses.replace(fm, table=shifted), "not on 64 bytes"
     qs, qlens = pad_reads(reads[:64], dev)
     ones = torch.ones(64, dtype=torch.int32, device=dev)
     before = (rank_cuda.launches, smem_pass_cuda.launches, pass3_cuda.launches)
     for call in (lambda: rank_cuda(bad, qlens),
                  lambda: smem_pass_cuda(bad, qs, qlens, ones * 0, ones, False, 12, 48),
                  lambda: pass3_cuda(bad, qs, qlens, 19, 20, 48)):
-        with pytest.raises(ValueError, match="not on 16 bytes"):
+        with pytest.raises(ValueError, match=match):
             call()
     assert (rank_cuda.launches, smem_pass_cuda.launches, pass3_cuda.launches) == before
 

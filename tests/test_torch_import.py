@@ -158,9 +158,9 @@ def test_launchers_refuse_cpu_tensors():
     v = torch.ones(2, dtype=torch.int32)
     mat = torch.zeros((5, 5), dtype=torch.int32)
     gaps = dict(o_del=6, e_del=1, o_ins=6, e_ins=1)
-    fm = DeviceFMIndex(occ=torch.zeros((2, 4), dtype=torch.int32),
-                       words=torch.zeros(8, dtype=torch.int32),
-                       L2=torch.zeros(5, dtype=torch.int32), primary=1, seq_len=128, l_pac=64)
+    fm = DeviceFMIndex.from_planar(torch.zeros((2, 4), dtype=torch.int32),
+                                   torch.zeros(8, dtype=torch.int32),
+                                   torch.zeros(5, dtype=torch.int32), 1, 128, 64)
     launchers = (extend_cuda, local_cuda, global_score_cuda, traceback_cuda, rank_cuda,
                  smem_pass_cuda, pass3_cuda)
     before = [f.launches for f in launchers]

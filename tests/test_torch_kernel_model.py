@@ -291,9 +291,10 @@ def test_model_notices_a_broken_trap(broken):
 
 
 # ----------------------------------------------------------------------
-# K5's occ4 routine (csrc/rank.cuh) and the seeding state machines S1 and
-# S3 (csrc/seed.cu) that inline it, against occ4_torch, smem_pass_torch and
-# pass3_torch.  A thread runs one read, so the models run one read at a
+# K5's occ4 routine (csrc/rank.cuh), read from the 64-byte record table,
+# K5's group of four lanes a query (csrc/rank.cu), and the seeding state
+# machines S1 and S3 (csrc/seed.cu) that inline the routine, against
+# occ4_torch, smem_pass_torch and pass3_torch.  A thread runs one read, so the models run one read at a
 # time, in rounds as the kernels do: a round is one round trip of rank
 # loads (a forward extend, or one group of G carried intervals of a
 # backward step).  The kernels' workspace is modelled by two interval
@@ -313,43 +314,96 @@ def popc(v):
 
 
 class Tabs:
-    """A DeviceFMIndex's tables as numpy int64 (words as their uint32 bits)."""
+    """A DeviceFMIndex's record table as numpy: each 64-byte record as 16
+    uint32 (held in int64), and the block's counts and words read from it
+    as rank.cuh reads them (chunk 0, or chunks 0-1 for int64, then two
+    chunks of words)."""
 
     def __init__(self, fm):
-        self.occ = fm.occ.numpy().astype(np.int64)
-        self.words = fm.words.numpy().astype(np.int64) & M32
+        self.rec = fm.table.numpy().view(np.uint32).reshape(-1, 16).astype(np.int64)
+        self.cc = 2 if fm.idt == torch.int64 else 1   # arachne_count_chunks
         self.L2 = fm.L2.numpy().astype(np.int64)
         self.primary, self.seq_len = int(fm.primary), int(fm.seq_len)
+
+    def counts(self, rec):
+        """(..., 4) checkpoint counts of records rec (..., 16)."""
+        if self.cc == 1:
+            return rec[..., 0:4]
+        return rec[..., 0:8:2] | (rec[..., 1:8:2] << 32)
+
+    def words(self, rec):
+        """(..., 8) words of records rec (..., 16)."""
+        return rec[..., 4 * self.cc : 4 * self.cc + 8]
+
+
+def word_masks(j, x):
+    """arachne_word_mask of words x for rows at base j of their block."""
+    wi, p = j >> 4, j & 15
+    part = ~((1 << (2 * (15 - p))) - 1) & M32
+    return np.where(x < wi, M32, np.where(x == wi, part, 0))
+
+
+def count_pairs(v):
+    """arachne_count_pair over words v (..., 2m): C, G and T counted two
+    words to a popcount, the second on the odd bits; returns (c1, c2, c3)."""
+    lo = (v[..., 0::2] & BASE_LANE) | ((v[..., 1::2] & BASE_LANE) << 1)
+    hi = ((v[..., 0::2] >> 1) & BASE_LANE) | (((v[..., 1::2] >> 1) & BASE_LANE) << 1)
+    t = popc(lo & hi)
+    return (popc(lo) - t).sum(-1), (popc(hi) - t).sum(-1), t.sum(-1)
+
+
+def occ4_finish(tab, k, j, base, c1, c2, c3):
+    """arachne_occ4_finish for c = 0..3: the counts on the checkpoint row,
+    A the rest of the j + 1 bases; the -1 and seq_len edges by selects."""
+    out = base + np.stack([j + 1 - c1 - c2 - c3, c1, c2, c3], axis=-1)
+    out = np.where((k == -1)[..., None], 0, out)
+    return np.where((k == tab.seq_len)[..., None], tab.L2[1:] - tab.L2[:-1], out)
 
 
 def model_occ4(tab, k):
     """arachne_occ4_count(arachne_occ4_load(k)) for every row of k (...,):
-    returns (..., 4).  All eight words of the block are loaded; each is
+    returns (..., 4).  The query's record is loaded whole; each word is
     masked by a select (whole below the row's word, bases 0..p in it,
-    nothing above); C, G and T are counted two words to a popcount and A
-    is the rest of the j + 1 bases; the -1 and seq_len edges are selects
-    after the loads."""
+    nothing above); the -1 and seq_len edges are selects after the
+    loads."""
     k = np.asarray(k, np.int64)
     kk = np.clip(k - (k >= tab.primary), 0, tab.seq_len - 1)
-    block = kk >> 7
-    w = tab.words[(block * 8)[..., None] + np.arange(8)]
-    base = tab.occ[block]
+    rec = tab.rec[kk >> 7]
     j = kk & 127
-    wi, p = (j >> 4)[..., None], (j & 15)[..., None]
-    part = ~((1 << (2 * (15 - p))) - 1) & M32
-    x = np.arange(8)
-    v = w & np.where(x < wi, M32, np.where(x == wi, part, 0))
-    # words 2m and 2m + 1 share a popcount, the second on the odd bits
-    lo = (v[..., 0::2] & BASE_LANE) | ((v[..., 1::2] & BASE_LANE) << 1)
-    hi = ((v[..., 0::2] >> 1) & BASE_LANE) | (((v[..., 1::2] >> 1) & BASE_LANE) << 1)
-    t = popc(lo & hi)
-    c3 = t.sum(-1)
-    c2 = (popc(hi) - t).sum(-1)
-    c1 = (popc(lo) - t).sum(-1)
-    cnt = np.stack([j + 1 - c1 - c2 - c3, c1, c2, c3], axis=-1)
-    out = base + cnt
-    out = np.where((k == -1)[..., None], 0, out)
-    return np.where((k == tab.seq_len)[..., None], tab.L2[1:] - tab.L2[:-1], out)
+    v = tab.words(rec) & word_masks(j[..., None], np.arange(8))
+    return occ4_finish(tab, k, j, tab.counts(rec), *count_pairs(v))
+
+
+def model_rank_group(tab, ks):
+    """rank_group_kernel of rank.cu for queries ks (n,): lane l of a query's
+    group of four holds chunk l of its record (nothing past the query's
+    chunks); the lanes that hold words count C, G and T in their four
+    words (every other lane's masks are 0), packed ten bits apiece; two
+    xor shuffles (1, then 2) sum the packs over the group; lanes below the
+    count chunks finish the query from their own chunk's counts, two for
+    int64 (lane h counts 2h and 2h + 1), four for int32.  Returns (n, 4)."""
+    k = np.asarray(ks, np.int64)
+    kk = np.clip(k - (k >= tab.primary), 0, tab.seq_len - 1)
+    j = kk & 127
+    rec = tab.rec[kk >> 7]
+    lane = np.arange(4)
+    chunk = np.where((lane < tab.cc + 2)[:, None], rec.reshape(-1, 4, 4), 0)   # (n, lane, 4)
+    h = lane - tab.cc
+    x = 4 * h[:, None] + np.arange(4)                                          # (lane, 4)
+    masks = np.where(((h == 0) | (h == 1))[:, None], word_masks(j[:, None, None], x), 0)
+    c1, c2, c3 = count_pairs(chunk & masks)                                    # (n, lane)
+    packed = c1 | (c2 << 10) | (c3 << 20)
+    packed = packed + packed[:, lane ^ 1]
+    packed = packed + packed[:, lane ^ 2]
+    out = np.zeros((len(k), 4), np.int64)
+    for l in range(tab.cc):
+        p, c = packed[:, l], chunk[:, l]
+        cols = slice(0, 4) if tab.cc == 1 else slice(2 * l, 2 * l + 2)
+        base = np.zeros((len(k), 4), np.int64)
+        base[:, cols] = c if tab.cc == 1 else np.stack([c[:, 0] | (c[:, 1] << 32),
+                                                        c[:, 2] | (c[:, 3] << 32)], axis=-1)
+        out[:, cols] = occ4_finish(tab, k, j, base, p & 1023, (p >> 10) & 1023, p >> 20)[:, cols]
+    return out
 
 
 def model_extend(tab, xb, x2, xo, is_back, c):
@@ -667,6 +721,22 @@ def test_occ4_model_matches_plain_on_every_row(seed_index, table):
     ks = np.arange(-1, fm.seq_len + 1, dtype=np.int64)
     want = occ4_torch(fm, torch.from_numpy(ks).to(fm.idt)).numpy()
     np.testing.assert_array_equal(model_occ4(Tabs(fm), ks), want)
+
+
+@pytest.mark.parametrize("table", ["narrow", "wide", "random words"])
+def test_rank_group_model_matches_plain_on_every_row(seed_index, table):
+    """K5's four lanes a query, on every row from -1 to seq_len of the seed
+    index, narrow and wide, and of 64 blocks of random words and counts."""
+    from arachne_tpu_torch.ops.fm_rank import DeviceFMIndex, occ4_torch
+    from arachne_tpu_torch.seeding_bench import synthetic_table
+
+    if table == "random words":
+        fm = synthetic_table("cpu", 64)
+    else:
+        fm = DeviceFMIndex.from_host(seed_index[0], "cpu", wide=table == "wide")
+    ks = np.arange(-1, fm.seq_len + 1, dtype=np.int64)
+    want = occ4_torch(fm, torch.from_numpy(ks).to(fm.idt)).numpy()
+    np.testing.assert_array_equal(model_rank_group(Tabs(fm), ks), want)
 
 
 S1_MODEL_CASES = (
