@@ -18,6 +18,19 @@ makes the fixture chip_smoke.py runs (by default a 2 Mbp random genome and
   * ``--bands``: the band widths w of the CIGAR-stage problems the first
     trial submits to ``BatchGlobal`` (kernels K3 and K4), as {w: count}.
 
+``--reference FASTA`` takes the library's genome from a FASTA (for
+instance one of ``python -m arachne_tpu_torch.scripts.make_scale_genome``)
+in place of the random ``--genome-bp`` one.  Unless ``FASTA.arx.npz`` is
+there already, the index is built by ``python -m arachne_tpu_torch.cli
+index FASTA`` in a subprocess, and the result records that build: its
+seconds, the ``build-mode auto`` line it printed (genomes of over 1e9 rows
+print one), its peak resident memory, the index file's bytes, ``sa_intv``,
+whether the suffix array is sampled and whether the device tables are
+wide.  The first trial then also records its accuracy against the
+simulated truth, the SHA-256 of every shard (two runs on one library wrote
+the same bytes when these are equal) and, on the card, its peak device
+memory.
+
 Every run is bracketed by the card's name, power limit, SM clock and power
 draw from nvidia-smi.  The result is one JSON object, written to ``--out``
 and summarised on standard output.
@@ -28,11 +41,15 @@ from __future__ import annotations
 import argparse
 import contextlib
 import filecmp
+import hashlib
 import json
 import os
 import shutil
+import signal
+import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -58,18 +75,12 @@ def write_genome(path, n, seed=GENOME_SEED):
             fh.write(seq[i : i + 70] + "\n")
 
 
-def make_library(work, genome_bp=2_000_000, barcodes=320, molecules=3, pairs=20,
-                 molecule_len=40_000, indel_rate=0.1, seed=2):
-    """Genome, index and simulated reads under ``work``: returns (ref, r1,
-    r2, pairs simulated, index seconds, simulation seconds)."""
-    from .index import build_index_files, parse_fasta
+def simulate_library(ref, work, barcodes, molecules, pairs, molecule_len, indel_rate, seed):
+    """Linked reads of ``ref`` under ``work``: returns (r1, r2, pairs
+    simulated, seconds)."""
+    from .index import parse_fasta
     from .io.simulate import SimConfig, simulate_linked_reads
 
-    ref = os.path.join(work, "ref.fa")
-    t0 = time.perf_counter()
-    write_genome(ref, genome_bp)
-    build_index_files(ref)
-    t_index = time.perf_counter() - t0
     r1, r2 = os.path.join(work, "m.R1.fq.gz"), os.path.join(work, "m.R2.fq.gz")
     t0 = time.perf_counter()
     n = simulate_linked_reads(
@@ -78,7 +89,91 @@ def make_library(work, genome_bp=2_000_000, barcodes=320, molecules=3, pairs=20,
                   pairs_per_molecule=pairs, molecule_len=molecule_len,
                   indel_rate=indel_rate, vary_quals=True, seed=seed),
     )
-    return ref, r1, r2, n, t_index, time.perf_counter() - t0
+    return r1, r2, n, time.perf_counter() - t0
+
+
+def make_library(work, genome_bp=2_000_000, barcodes=320, molecules=3, pairs=20,
+                 molecule_len=40_000, indel_rate=0.1, seed=2):
+    """Genome, index and simulated reads under ``work``: returns (ref, r1,
+    r2, pairs simulated, index seconds, simulation seconds)."""
+    from .index import build_index_files
+
+    ref = os.path.join(work, "ref.fa")
+    t0 = time.perf_counter()
+    write_genome(ref, genome_bp)
+    build_index_files(ref)
+    t_index = time.perf_counter() - t0
+    r1, r2, n, t_sim = simulate_library(ref, work, barcodes, molecules, pairs, molecule_len,
+                                        indel_rate, seed)
+    return ref, r1, r2, n, t_index, t_sim
+
+
+def index_reference(reference, log_path, timeout=None):
+    """Index ``reference`` with ``python -m arachne_tpu_torch.cli index`` in
+    a subprocess (its output to ``log_path``), unless ``reference.arx.npz``
+    exists; returns the build's record and the index's (``build_s``,
+    ``build_mode_line`` and ``peak_rss_bytes`` are None for an index found
+    on disk).  The peak is the child's own ``ru_maxrss``, read by
+    ``os.wait4`` when it is reaped (the field RUSAGE_CHILDREN gives, for
+    this child alone).  A build past ``timeout`` seconds is killed and
+    raises, as does a failed one."""
+    arx = reference + ".arx.npz"
+    rec = {"built": False, "build_s": None, "build_mode_line": None, "peak_rss_bytes": None}
+    if not os.path.exists(arx):
+        env = dict(os.environ)
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+        t0 = time.perf_counter()
+        with open(log_path, "w") as fh:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "arachne_tpu_torch.cli", "index", reference],
+                stdout=fh, stderr=subprocess.STDOUT, env=env)
+        killer = threading.Timer(timeout, proc.kill) if timeout else None
+        if killer:
+            killer.start()
+        try:
+            _, status, usage = os.wait4(proc.pid, 0)
+        finally:
+            if killer:
+                killer.cancel()
+        proc.returncode = os.waitstatus_to_exitcode(status)
+        rec["build_s"] = time.perf_counter() - t0
+        with open(log_path) as fh:
+            text = fh.read()
+        if proc.returncode != 0:
+            why = f", killed past {timeout} s" if proc.returncode == -signal.SIGKILL else ""
+            raise RuntimeError(f"index of {reference} failed (exit code {proc.returncode}{why}); "
+                               f"its output ends:\n{text[-3000:]}")
+        rec.update(built=True, peak_rss_bytes=usage.ru_maxrss * 1024,
+                   build_mode_line=next((ln.strip() for ln in text.splitlines()
+                                         if "build-mode auto" in ln), None))
+    with np.load(arx, allow_pickle=False) as z:
+        seq_len = int(z["seq_len"])
+        rec.update(index_bytes=os.path.getsize(arx), seq_len=seq_len, sa_intv=int(z["sa_intv"]),
+                   sa_sampled=z["sa"].size == 0 and z["sa_sampled"].size > 0,
+                   wide=seq_len >= (1 << 31))
+    return rec
+
+
+def reference_library(work, reference, barcodes=320, molecules=3, pairs=20,
+                      molecule_len=40_000, indel_rate=0.1, seed=2, timeout=None):
+    """A library on a given reference, as ``--reference`` makes it: the
+    index (``index_reference``) and simulated reads under ``work``.
+    Returns (reference, r1, r2, pairs simulated, the index record,
+    simulation seconds)."""
+    build = index_reference(reference, os.path.join(work, "index.log"), timeout)
+    r1, r2, n, t_sim = simulate_library(reference, work, barcodes, molecules, pairs,
+                                        molecule_len, indel_rate, seed)
+    return reference, r1, r2, n, build, t_sim
+
+
+def shard_digests(out):
+    """{shard: SHA-256} of an output directory's shards."""
+    digests = {}
+    for name in sorted(os.listdir(out)):
+        with open(os.path.join(out, name), "rb") as fh:
+            digests[name] = hashlib.sha256(fh.read()).hexdigest()
+    return digests
 
 
 def library_reads(r1, r2, n_pairs):
@@ -134,12 +229,18 @@ def recorded_bands(counts):
         BatchGlobal.submit = submit
 
 
-def timed_run(engine, out, lib, threads):
+def timed_run(engine, out, lib, threads, checked=False):
+    """One timed run; ``checked`` adds its accuracy, its shards' digests
+    and, on the card, its peak device memory."""
+    from .runtime.accuracy import evaluate_sam
     from .runtime.timers import TIMERS
 
     TIMERS.reset()
+    on_card = engine == "cuda"
+    if checked and on_card:
+        torch.cuda.reset_peak_memory_stats()
     stats = align(engine, out, *lib, threads)
-    return {
+    run = {
         "engine": engine,
         "pairs": stats.reads,
         "pairs_per_s": stats.reads / stats.elapsed,
@@ -147,6 +248,12 @@ def timed_run(engine, out, lib, threads):
         "stages_s": {k: v["seconds"] for k, v in TIMERS.as_dict().items()},
         "card_after": card_state(),
     }
+    if checked:
+        acc = evaluate_sam(os.path.join(out, "bc_sorted_bam.sam"))
+        run.update(accuracy=acc.correct / max(acc.total, 1), evaluated_reads=acc.total,
+                   shard_sha256=shard_digests(out),
+                   peak_device_bytes=torch.cuda.max_memory_allocated() if on_card else None)
+    return run
 
 
 def profiled_run(out, lib, threads, dev):
@@ -191,6 +298,10 @@ def main(argv=None):
     ap.add_argument("--molecules", type=int, default=3)
     ap.add_argument("--pairs", type=int, default=20)
     ap.add_argument("--molecule-len", type=int, default=40_000)
+    ap.add_argument("--indel-rate", type=float, default=0.1)
+    ap.add_argument("--reference", metavar="FASTA",
+                    help="the library's genome (indexed unless FASTA.arx.npz exists) in "
+                    "place of a random one of --genome-bp")
     ap.add_argument("--out", help="write the JSON result here")
     args = ap.parse_args(argv)
     if args.trials < 1:
@@ -205,23 +316,34 @@ def main(argv=None):
     res = {"probe": probe(), "args": vars(args)}
     work = tempfile.mkdtemp(prefix="measure_")
     try:
-        ref, r1, r2, n, t_index, t_sim = make_library(
-            work, args.genome_bp, args.barcodes, args.molecules, args.pairs,
-            args.molecule_len)
+        shape = (args.barcodes, args.molecules, args.pairs, args.molecule_len, args.indel_rate)
+        if args.reference:
+            ref, r1, r2, n, build, t_sim = reference_library(work, args.reference, *shape)
+            res["library"] = {"pairs": n, "reference": args.reference, "index": build,
+                              "simulate_s": t_sim}
+            print(f"library: {n} pairs; index {json.dumps(build)}; simulation {t_sim:.1f} s",
+                  flush=True)
+        else:
+            ref, r1, r2, n, t_index, t_sim = make_library(work, args.genome_bp, *shape)
+            res["library"] = {"pairs": n, "index_s": t_index, "simulate_s": t_sim}
+            print(f"library: {n} pairs; index {t_index:.1f} s, simulation {t_sim:.1f} s",
+                  flush=True)
         lib = (ref, r1, r2)
-        res["library"] = {"pairs": n, "index_s": t_index, "simulate_s": t_sim}
-        print(f"library: {n} pairs; index {t_index:.1f} s, simulation {t_sim:.1f} s",
-              flush=True)
         warmup(dev)
         res["card_before"] = card_state()
         res["trials"] = []
         bands = {}
         for k in range(args.trials):
             with recorded_bands(bands) if args.bands and k == 0 else contextlib.nullcontext():
-                run = timed_run(args.engine, os.path.join(work, f"trial{k}"), lib, args.threads)
+                run = timed_run(args.engine, os.path.join(work, f"trial{k}"), lib, args.threads,
+                                checked=bool(args.reference) and k == 0)
             res["trials"].append(run)
             print(f"trial {k}: {run['pairs_per_s']} pairs/s, align loop "
                   f"{run['align_loop_s']} s; {run['card_after']}", flush=True)
+            if "accuracy" in run:
+                print(f"trial {k}: accuracy {run['accuracy']:.4f} of {run['evaluated_reads']} "
+                      f"reads, peak device memory {run['peak_device_bytes']} bytes, shards "
+                      f"{json.dumps(run['shard_sha256'])}", flush=True)
         if args.bands:
             res["bands"] = {str(w): n for w, n in sorted(bands.items())}
             print(f"CIGAR-stage band widths (w: problems): {res['bands']}", flush=True)

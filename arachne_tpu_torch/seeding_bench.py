@@ -42,6 +42,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from .config import MemOptions
 from .device import cuda_ms, device_ms, graph_ms, probe, resolve_device
 from .ops.cuda_seed import pass3_cuda, smem_pass_cuda
 from .ops.fm_rank import DeviceFMIndex, occ4_device, occ4_torch
@@ -69,6 +70,49 @@ def synthetic_table(device, n_blocks: int = GRCH38_BLOCKS, seed: int = 0) -> Dev
                       dtype=torch.int64, device=device)
     return DeviceFMIndex(table=table, L2=L2, primary=seq_len // 3, seq_len=seq_len,
                          l_pac=seq_len // 2)
+
+
+def wide_seeding_parity(fm: DeviceFMIndex, n_reads: int, seed: int = 17) -> int:
+    """S1 pass 1, S1 pass 2 (one sweep from a random pivot with a random
+    min_intv) and S3 against their plain versions on ``n_reads`` random
+    reads of 150 bases, with the main path's buffers, on a table of at
+    least 2^31 rows (``synthetic_table``): the table is no index of the
+    reads, but the state machines' contract holds on any table, and their
+    intervals' rows reach past 2^31.  Raises unless out, out_n and the
+    overflow flags are equal and some k, l or s written is at least 2^31;
+    returns how many are."""
+    from .ops.fm_seed import pad_reads, pass3, pass3_torch, seed_buffers, smem_pass, smem_pass_torch
+
+    if fm.seq_len < (1 << 31):
+        raise ValueError(f"a table of {fm.seq_len} rows has no row at 2^31")
+    opt = MemOptions()
+    rng = np.random.default_rng(seed)
+    qs, qlens = pad_reads([rng.integers(0, 4, 150).astype(np.uint8) for _ in range(n_reads)],
+                          fm.device)
+    R, L = qs.shape
+    MAX = seed_buffers(L)
+    dev = fm.device
+    piv = torch.from_numpy(rng.integers(0, 150, R).astype(np.int32)).to(dev)
+    minis = torch.from_numpy(rng.integers(1, 20, R).astype(np.int32)).to(dev)
+    zeros = torch.zeros(R, dtype=torch.int32, device=dev)
+    passes = {
+        "S1 pass 1": ((fm, qs, qlens, zeros, zeros + 1, False, MAX, MAX),
+                      smem_pass, smem_pass_torch),
+        "S1 pass 2": ((fm, qs, qlens, piv, minis, True, MAX, MAX), smem_pass, smem_pass_torch),
+        "S3": ((fm, qs, qlens, opt.min_seed_len, opt.max_mem_intv, MAX), pass3, pass3_torch),
+    }
+    past = 0
+    for name, (args, kernel, plain) in passes.items():
+        got, want = kernel(*args), plain(*args)
+        for g, w in zip(got, want):
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                raise AssertionError(f"{name} differs from its plain version on the wide table")
+        out, out_n, _ = got
+        filled = torch.arange(MAX, device=dev)[None, :] < out_n[:, None]
+        past += int((out[:, :, :3][filled] >= (1 << 31)).sum())
+    if not past:
+        raise AssertionError("no k, l or s written reached 2^31")
+    return past
 
 
 def parity_rows(fm: DeviceFMIndex, n: int = 2048, seed: int = 1) -> torch.Tensor:
@@ -210,7 +254,6 @@ def main(argv=None) -> dict:
     ap.add_argument("--out", help="write the JSON result here")
     args = ap.parse_args(argv)
 
-    from .config import MemOptions
     from .index import FMIndex, build_index_files, load_index, unpack_2bit
 
     from .measure import write_genome

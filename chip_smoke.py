@@ -72,7 +72,28 @@ result line):
      6c. the align command in this process with the device pool pinned to
          [card, card] (ops/devicepool.py): K1-K4 must launch and every
          shard must be byte-identical to phase 3's.
-     Every subprocess has a timeout and is killed if it outlives it.
+     Every subprocess has a timeout and is killed if it outlives it;
+  7. genome scale, at config 3's size:
+     7a. a 4 x 16 Mbp genome of ``python -m
+         arachne_tpu_torch.scripts.make_scale_genome`` (seed 7: planted
+         repeat families, N runs), indexed by ``python -m
+         arachne_tpu_torch.cli index`` in a subprocess as ``measure
+         --reference`` indexes (measure.reference_library): the build's
+         seconds, peak RSS, bytes and build-mode line are logged; its
+         1.28e8 rows must give a sampled suffix array and a record table
+         larger than the L2;
+     7b. phase 3's library shape on it, host-seeded and then device-seeded
+         (phase 3's and phase 5's checks: launches counted from zero,
+         accuracy, no read redone, identical shards), logged beside phase
+         3's pairs/s;
+     7c. S1 (passes 1 and 2) and S3 on one superbatch of it against their
+         plain versions on the card, on its int32 tables (in HBM) and on
+         the same tables forced wide (equal to the int32 results, cast); K5
+         against the host index's occ4 on 4096 rows; their device times
+         beside phase 2b's, with bounds at phase 1's HBM copy rate; then
+         ``seeding_bench`` on this index;
+     7d. S1 and S3 against their plain versions on random reads over the
+         synthetic GRCh38-sized table, whose rows pass 2^31.
 
 The last three lines of standard output are the kernel table (one JSON
 object, with each kernel's bound and, where one PyTorch call computes the
@@ -132,7 +153,7 @@ RANK_ROW_BYTES = 64
 # share are flagged in the log
 K5_READINGS_APART = 0.10
 CLOCKS = {}         # nvidia-smi's SM clocks in MHz, read in phase 1
-RATES = {}          # bytes/s: "l2", measured in phase 1
+RATES = {}          # bytes/s: "l2" and "hbm", measured in phase 1
 
 
 def bound(ops=0, nbytes=0, bytes_per_s=HBM_BYTES_PER_S):
@@ -268,9 +289,10 @@ def probe_and_build():
             log(f"   ptxas: {line.strip()}")
     dev = torch.device("cuda", 0)
     RATES["l2"] = l2_rate(dev)
-    hbm_copy = 2 * (1 << 30) * 4 / (copy_ms(dev, 1 << 30, 4) * 1e-3)
+    RATES["hbm"] = hbm_copy = 2 * (1 << 30) * 4 / (copy_ms(dev, 1 << 30, 4) * 1e-3)
     log(f"   copy rates: {RATES['l2'] / 1e12:.3f} TB/s in L2 (the bound's rate for "
-        f"L2-resident tables), {hbm_copy / 1e12:.3f} TB/s on 1 GiB in HBM (data sheet "
+        f"L2-resident tables), {hbm_copy / 1e12:.3f} TB/s on 1 GiB in HBM (phase 7's rate "
+        f"for the tables of its index, beyond the L2; data sheet "
         f"{HBM_BYTES_PER_S / 1e12:.2f})")
     return info, dev
 
@@ -512,6 +534,46 @@ def reset_counts():
     TIMERS.reset()
 
 
+def seeding_kernels_on(fm, qs, qlens, opt, MAXC, MAXS, tag):
+    """S1 pass 1, S1 pass 2 (every job of pass 1's long SMEMs in one
+    launch, as collect_seeds_device runs it) and S3 on ``fm`` with buffers
+    of MAXC intervals and MAXS SMEMs; each must equal its plain version on
+    the card, out, out_n and the overflow flags alike.  Returns each
+    kernel's outputs, its arguments, its reads' overflow flags, the occ4
+    rows each pass needs, the plain versions' ms (one run each) and the
+    max abs errors of S1 and S3 (0)."""
+    import torch
+
+    from arachne_tpu_torch.ops.fm_seed import (
+        pass1_seeds, pass2_inputs, pass3, pass3_torch, smem_pass, smem_pass_torch,
+    )
+
+    R, L = qs.shape
+    zeros = torch.zeros(R, dtype=torch.int32, device=qs.device)
+    p1 = (qs, qlens, zeros, zeros + 1, False, MAXC, MAXS)
+    st1, st2, st3 = {}, {}, {}
+    got1 = smem_pass(fm, *p1)
+    want1, plain1_ms = timed(lambda: smem_pass_torch(fm, *p1, stats=st1))
+    err1 = require_equal(f"S1 pass 1, {tag}", zip(got1, want1))
+    out1, n1, ovf1 = (t.cpu().numpy() for t in got1)
+    _, jobs = pass1_seeds(out1, n1, ovf1, R, opt)
+    _, *job_args = pass2_inputs(jobs, qs, qlens)
+    p2 = (*job_args, True, MAXC, MAXS)
+    got2 = smem_pass(fm, *p2)
+    want2, plain2_ms = timed(lambda: smem_pass_torch(fm, *p2, stats=st2))
+    err1 = max(err1, require_equal(f"S1 pass 2, {tag}", zip(got2, want2)))
+    p3 = (qs, qlens, opt.min_seed_len, opt.max_mem_intv, MAXS)
+    got3 = pass3(fm, *p3)
+    want3, plain3_ms = timed(lambda: pass3_torch(fm, *p3, stats=st3))
+    err3 = require_equal(f"S3, {tag}", zip(got3, want3))
+    flags = [int(g[2].sum()) for g in (got1, got2, got3)]
+    log(f"   S1/S3, {tag}: equal on {R} reads (L {L}); {p2[0].shape[0]} pass-2 jobs; "
+        f"overflow flags pass 1 / pass 2 / pass 3: {flags}")
+    return dict(outs=(got1, got2, got3), p1=p1, p2=p2, p3=p3, flags=flags,
+                rank_rows=tuple(st.get("rank_rows", 0) for st in (st1, st2, st3)),
+                plain_ms=(plain1_ms, plain2_ms, plain3_ms), err=(err1, err3))
+
+
 @phase("2b seeding kernels")
 def seeding_parity(dev, lib, work):
     import torch
@@ -522,10 +584,7 @@ def seeding_parity(dev, lib, work):
     from arachne_tpu_torch.device import cuda_ms, device_ms, graph_ms
     from arachne_tpu_torch.measure import library_reads
     from arachne_tpu_torch.ops.fm_rank import DeviceFMIndex, occ4_device
-    from arachne_tpu_torch.ops.fm_seed import (
-        pad_reads, pass1_seeds, pass2_inputs, pass3, pass3_torch, seed_buffers, smem_pass,
-        smem_pass_torch,
-    )
+    from arachne_tpu_torch.ops.fm_seed import pad_reads, pass3, seed_buffers, smem_pass
 
     ref, r1, r2, _ = lib
     opt = MemOptions()
@@ -548,48 +607,30 @@ def seeding_parity(dev, lib, work):
     reads = library_reads(r1, r2, PipelineOptions().reads_per_batch)
     qs, qlens = pad_reads(reads, dev)
     R, L = qs.shape
-    zeros = torch.zeros(R, dtype=torch.int32, device=dev)
-    ones = torch.ones(R, dtype=torch.int32, device=dev)
     err_s1 = err_s3 = 0
     for MAXC, MAXS in ((seed_buffers(L),) * 2, (2, 4)):
         tag = f"MAXC={MAXC}, MAXS={MAXS}"
-        p1 = (qs, qlens, zeros, ones, False, MAXC, MAXS)
-        got1 = smem_pass(fm, *p1)
-        st1 = {}
-        want1, plain1_ms = timed(lambda: smem_pass_torch(fm, *p1, stats=st1))
-        err_s1 = max(err_s1, require_equal(f"S1 pass 1, {tag}", zip(got1, want1)))
-        out1, n1, ovf1 = (t.cpu().numpy() for t in got1)
-        _, jobs = pass1_seeds(out1, n1, ovf1, len(reads), opt)
-        _, *job_args = pass2_inputs(jobs, qs, qlens)
-        p2 = (*job_args, True, MAXC, MAXS)
-        got2 = smem_pass(fm, *p2)
-        err_s1 = max(err_s1, require_equal(f"S1 pass 2, {tag}", zip(got2, smem_pass_torch(fm, *p2))))
-        p3 = (qs, qlens, opt.min_seed_len, opt.max_mem_intv, MAXS)
-        got3 = pass3(fm, *p3)
-        st3 = {}
-        want3, plain3_ms = timed(lambda: pass3_torch(fm, *p3, stats=st3))
-        err_s3 = max(err_s3, require_equal(f"S3, {tag}", zip(got3, want3)))
-        flags = [int(g[2].sum()) for g in (got1, got2, got3)]
-        log(f"   S1/S3, {tag}: equal on {len(reads)} reads (R {R}, L {L}); "
-            f"{sum(map(len, jobs))} pass-2 jobs; overflow flags pass 1 / pass 2 / "
-            f"pass 3: {flags}")
+        run = seeding_kernels_on(fm, qs, qlens, opt, MAXC, MAXS, tag)
+        err_s1, err_s3 = max(err_s1, run["err"][0]), max(err_s3, run["err"][1])
+        flags = run["flags"]
         if MAXC == 2:
             if not (flags[0] and flags[2]):
                 raise AssertionError(f"{tag} should overflow in passes 1 and 3: {flags}")
             continue
         if any(flags):
             raise AssertionError(f"{tag}: reads overflowed the main path's buffers: {flags}")
+        p1, p2, p3 = run["p1"], run["p2"], run["p3"]
         s1, s1_pass2, s3 = ((lambda: smem_pass(fm, *p1)), (lambda: smem_pass(fm, *p2)),
                             (lambda: pass3(fm, *p3)))
         rows["S1"] = dict(err=err_s1, ms=cuda_ms(s1, 10), device_ms=device_ms(s1, 10),
                           pass2_ms=cuda_ms(s1_pass2, 10), pass2_device_ms=device_ms(s1_pass2, 10),
                           pass2_jobs=int(p2[0].shape[0]),
-                          plain_ms=plain1_ms, rank_rows=st1["rank_rows"],
-                          **bound(nbytes=st1["rank_rows"] * RANK_ROW_BYTES,
+                          plain_ms=run["plain_ms"][0], rank_rows=run["rank_rows"][0],
+                          **bound(nbytes=run["rank_rows"][0] * RANK_ROW_BYTES,
                                   bytes_per_s=RATES["l2"]))
         rows["S3"] = dict(err=err_s3, ms=cuda_ms(s3, 10), device_ms=device_ms(s3, 10),
-                          plain_ms=plain3_ms, rank_rows=st3["rank_rows"],
-                          **bound(nbytes=st3["rank_rows"] * RANK_ROW_BYTES,
+                          plain_ms=run["plain_ms"][2], rank_rows=run["rank_rows"][2],
+                          **bound(nbytes=run["rank_rows"][2] * RANK_ROW_BYTES,
                                   bytes_per_s=RATES["l2"]))
     rows["S1"]["err"], rows["S3"]["err"] = err_s1, err_s3
     # K5's device time at the rank benchmark's largest batch (2^20 uniform
@@ -635,6 +676,14 @@ def seeding_parity(dev, lib, work):
 
 @phase("3 main path")
 def main_path(work, dev, lib):
+    return host_seeded_run(work, dev, lib)
+
+
+def host_seeded_run(work, dev, lib):
+    """``align --engine cuda`` with host seeding on ``lib``, its launches
+    counted from zero: K1-K4 must launch and accuracy reach 0.99.  Returns
+    the main path's launches, the output directory, the stage seconds and
+    the pairs/s."""
     import torch
 
     from arachne_tpu_torch.runtime.accuracy import evaluate_sam
@@ -670,7 +719,8 @@ def main_path(work, dev, lib):
     log(f"   accuracy {acc.correct}/{acc.total} = {ratio:.4f}")
     if stats.reads != n or acc.total < 2 * n * 0.95 or ratio < 0.99:
         raise AssertionError(f"main path output wrong: {stats.reads} pairs, accuracy {ratio}")
-    return {k: launches[k] for k in MAIN_LAUNCHERS}, out, stages
+    return ({k: launches[k] for k in MAIN_LAUNCHERS}, out, stages,
+            stats.reads / stats.elapsed)
 
 
 @phase("4 byte identity with the oracle")
@@ -706,6 +756,15 @@ def byte_identity(work, ref):
 
 @phase("5 device-seeded main path")
 def device_seeded_path(work, dev, lib, host_out, host_stages):
+    return device_seeded_run(work, dev, lib, host_out, host_stages)[0]
+
+
+def device_seeded_run(work, dev, lib, host_out, host_stages):
+    """``align --engine cuda`` with ARACHNE_DEVICE_SEEDING=1 on ``lib``,
+    its launches counted from zero: S1, S3 and K1-K4 must launch, no read
+    may be redone, accuracy must reach 0.99 and every shard must equal the
+    host-seeded run's in ``host_out``.  Returns S1's and S3's launches, the
+    stage seconds and the pairs/s."""
     import torch
 
     from arachne_tpu_torch.runtime.accuracy import evaluate_sam
@@ -751,7 +810,7 @@ def device_seeded_path(work, dev, lib, host_out, host_stages):
     log(f"   shards byte-identical to phase 3's: {same}")
     if not all(same.values()):
         raise AssertionError(f"device seeding changed the output: {same}")
-    return {k: launches[k] for k in ("S1", "S3")}
+    return {k: launches[k] for k in ("S1", "S3")}, stages, stats.reads / stats.elapsed
 
 
 # seconds any one align subprocess of phase 6 may take (each takes about
@@ -774,9 +833,9 @@ def cli_env(**extra):
     return env
 
 
-def run_logged(cmds, logs, env):
+def run_logged(cmds, logs, env, timeout=SUBPROCESS_TIMEOUT):
     """Start every command at once, each writing to its log; wait for all
-    within SUBPROCESS_TIMEOUT, killing any left; return their exit codes
+    within ``timeout`` seconds, killing any left; return their exit codes
     and logs' text."""
     procs = []
     try:
@@ -785,7 +844,7 @@ def run_logged(cmds, logs, env):
                 procs.append(subprocess.Popen(cmd, cwd=ROOT, env=e, stdout=fh,
                                               stderr=subprocess.STDOUT))
         t0 = time.monotonic()
-        deadline = t0 + SUBPROCESS_TIMEOUT
+        deadline = t0 + timeout
         rcs = []
         for p, path in zip(procs, logs):
             rcs.append(p.wait(timeout=max(1.0, deadline - time.monotonic())))
@@ -980,6 +1039,134 @@ def other_routes(work, dev, lib, host_out):
     return dict(runs=runs, fleet_peak_mib=peak, fleet_baseline_mib=mem.baseline)
 
 
+# Phase 7's genome: config 3's size, 4 contigs x 16 Mbp (seed 7), with the
+# planted repeat families and N runs of make_scale_genome.  Its 1.28e8 rows
+# are above IndexOptions.sa_full_max_len (2^26), so the suffix array is
+# sampled, and its record table (64 MB) is beyond the 50 MB L2, so S1, S3
+# and K5 read HBM.  Any cut must keep both.
+SCALE_CONTIGS, SCALE_CONTIG_LEN, SCALE_SEED = 4, 16_000_000, 7
+# seconds the genome and the index builds may take (the build takes about a
+# minute; the smoke's limit is 1200 s in all)
+SCALE_GENOME_TIMEOUT, SCALE_INDEX_TIMEOUT = 120, 400
+# 7d: random reads on the synthetic GRCh38-sized table
+WIDE_READS = 1024
+
+
+@phase("7 genome scale")
+def genome_scale(work, dev, l2_rows, main_rate):
+    import torch
+
+    from arachne_tpu_torch import seeding_bench
+    from arachne_tpu_torch.config import MemOptions, PipelineOptions
+    from arachne_tpu_torch.device import device_ms, graph_ms
+    from arachne_tpu_torch.index import FMIndex, load_index
+    from arachne_tpu_torch.measure import library_reads, reference_library
+    from arachne_tpu_torch.ops.engine import device_tables
+    from arachne_tpu_torch.ops.fm_rank import DeviceFMIndex, occ4_device
+    from arachne_tpu_torch.ops.fm_seed import pad_reads, pass3, seed_buffers, smem_pass
+
+    opt = MemOptions()
+    res = {}
+    # 7a: the genome and its index, built as measure --reference builds it
+    t0 = time.perf_counter()
+    fasta = os.path.join(work, "scale.fa")
+    (rc,), (text,) = run_logged(
+        [[sys.executable, "-m", "arachne_tpu_torch.scripts.make_scale_genome", fasta,
+          "--contigs", str(SCALE_CONTIGS), "--contig-len", str(SCALE_CONTIG_LEN),
+          "--seed", str(SCALE_SEED)]],
+        [os.path.join(work, "scale_genome.log")], [cli_env()], SCALE_GENOME_TIMEOUT)
+    require_rc("7a make_scale_genome", rc, 0, text)
+    log(f"   7a: genome of {SCALE_CONTIGS} x {SCALE_CONTIG_LEN} bp (seed {SCALE_SEED}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ref, r1, r2, n, build, t_sim = reference_library(work, fasta, timeout=SCALE_INDEX_TIMEOUT)
+    log(f"   7a: index built by `cli index` in {build['build_s']} s, peak RSS "
+        f"{build['peak_rss_bytes']} bytes, build-mode auto line: {build['build_mode_line']!r}, "
+        f"{build['index_bytes']} bytes on disk, {build['seq_len']} rows, sa_intv "
+        f"{build['sa_intv']}, sampled SA {build['sa_sampled']}, wide {build['wide']}")
+    log(f"   7a: simulated {n} pairs in {t_sim:.1f} s")
+    idx = FMIndex(*load_index(ref + ".arx.npz"))
+    if not build["sa_sampled"] or idx.fm.sa is not None or not idx.fm.sa_sampled.size:
+        raise AssertionError("7a: the index does not keep a sampled suffix array")
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    table_bytes = DeviceFMIndex.table_bytes(idx)
+    log(f"   7a: record table {table_bytes} bytes against the L2's {l2}")
+    if table_bytes <= l2:
+        raise AssertionError("7a: the index's tables fit the L2: nothing here reads HBM")
+    res["build"] = build
+
+    # 7b: the library through the main path, host-seeded then device-seeded
+    lib = (ref, r1, r2, n)
+    host_launches, host_out, host_stages, host_rate = host_seeded_run(work, dev, lib)
+    dev_launches, dev_stages, dev_rate = device_seeded_run(work, dev, lib, host_out, host_stages)
+    keys = ("seed.host", "seed.device", "chain.host", "cigar", "rfa.host", "io.write")
+    for name, stages, rate in (("host-seeded", host_stages, host_rate),
+                               ("device-seeded", dev_stages, dev_rate)):
+        log(f"   7b {name}: {rate:.1f} pairs/s (phase 3, the 2 Mbp genome, in this call: "
+            f"{main_rate:.1f}); " + ", ".join(f"{k} {stages.get(k)}" for k in keys))
+    res.update(host_rate=host_rate, device_rate=dev_rate, launches={**host_launches,
+                                                                   **dev_launches})
+
+    # 7c: the seeding kernels on this index's tables, which lie in HBM
+    fm = device_tables(idx, dev)
+    reads = library_reads(r1, r2, PipelineOptions().reads_per_batch)
+    qs, qlens = pad_reads(reads, dev)
+    MAX = seed_buffers(qs.shape[1])
+    narrow = seeding_kernels_on(fm, qs, qlens, opt, MAX, MAX, "int32 tables beyond the L2")
+    wide_fm = DeviceFMIndex.from_host(idx, dev, wide=True)
+    wide = seeding_kernels_on(wide_fm, qs, qlens, opt, MAX, MAX,
+                              "the same index's tables forced wide")
+    if any(narrow["flags"] + wide["flags"]):
+        raise AssertionError("7c: reads overflowed the main path's buffers")
+    for name, a, b in zip(("S1 pass 1", "S1 pass 2", "S3"), narrow["outs"], wide["outs"]):
+        if b[0].dtype != torch.int64:
+            raise AssertionError(f"7c {name}: the wide tables gave {b[0].dtype}")
+        require_equal(f"{name}, wide against int32, cast", zip(a, b))
+    log("   7c: the wide tables' outputs equal the int32 ones, cast")
+    del wide_fm
+    ks = seeding_bench.parity_rows(fm, 4096)
+    got = occ4_device(fm, ks).cpu().numpy()
+    if not np.array_equal(got, idx.occ4(ks.cpu().numpy().astype(np.int64))):
+        raise AssertionError("7c: K5 differs from the host occ4 on the index beyond the L2")
+    log(f"   7c: K5 (four lanes a query: the table exceeds the L2) equals idx.occ4 on "
+        f"{ks.numel()} rows, edge rows included")
+    # the kernels' device times beside phase 2b's on the 2 Mbp index in the
+    # L2; bounds: 64 bytes an occ4 row at the HBM rate phase 1 measured
+    times = {}
+    for i, name in enumerate(("S1", "S1 pass 2", "S3")):
+        args = (narrow["p1"], narrow["p2"], narrow["p3"])[i]
+        fn = (lambda a=args: smem_pass(fm, *a)) if i < 2 else (lambda a=args: pass3(fm, *a))
+        rows = narrow["rank_rows"][i]
+        times[name] = dict(device_ms=device_ms(fn, 10), graph_ms=graph_ms(fn, 10),
+                           plain_ms=narrow["plain_ms"][i], rank_rows=rows,
+                           **bound(nbytes=rows * RANK_ROW_BYTES, bytes_per_s=RATES["hbm"]))
+    l2_ms = {"S1": l2_rows["S1"]["device_ms"], "S1 pass 2": l2_rows["S1"]["pass2_device_ms"],
+             "S3": l2_rows["S3"]["device_ms"]}
+    for name, t in times.items():
+        log(f"   7c {name}: {on_card(t['device_ms'])} (graph {t['graph_ms']:.4f} ms), "
+            f"{t['rank_rows']} occ4 rows, bound {t['bound_ms']:.4f} ms at the HBM copy rate; "
+            f"phase 2b in the L2: {on_card(l2_ms[name])}; plain {t['plain_ms']:.1f} ms")
+    res["seeding_kernels"] = times
+    bench = seeding_bench.main(["--index", ref + ".arx.npz", "--wide-blocks", "0",
+                                "--reads", "4096", "--out", os.path.join(work, "seeding7.json")])
+    last = bench["tables"]["index"]["batches"][-1]
+    k5_bound = bound(nbytes=last["bytes"], bytes_per_s=RATES["hbm"])
+    log(f"   7c: K5 at {last['B']} rows of this index: {last['graph_ms']:.4f} ms by a graph, "
+        f"bound {k5_bound['bound_ms']:.4f} ms at the HBM copy rate; seeding 4096 reads: "
+        f"device {bench['seeding']['device_reads_per_s']:.0f} reads/s, native "
+        f"{bench['seeding']['native_reads_per_s']:.0f} reads/s")
+    res.update(k5=dict(last, **k5_bound), seeding=bench["seeding"])
+    del fm
+
+    # 7d: S1/S3 on rows at and above 2^31, on the synthetic GRCh38-sized table
+    big = seeding_bench.synthetic_table(dev)
+    past = seeding_bench.wide_seeding_parity(big, WIDE_READS)
+    log(f"   7d: S1 pass 1, S1 pass 2 and S3 equal their plain versions on {WIDE_READS} "
+        f"random reads on the synthetic table ({big.seq_len} rows, int64); {past} of their "
+        "k, l and s values are at or above 2^31")
+    del big
+    return res
+
+
 KERNELS = [
     ("K1", "extend_cuda", "arachne_tpu_torch/ops/csrc/extend.cu",
      "arachne_tpu/ops/pallas_extend.py:51"),
@@ -1027,11 +1214,14 @@ def main() -> int:
         lib = library(work)
         seed_rows, launches, seeding = seeding_parity(dev, lib, work)
         rows.update(seed_rows)
-        main_launches, host_out, host_stages = main_path(work, dev, lib)
+        main_launches, host_out, host_stages, main_rate = main_path(work, dev, lib)
         launches.update(main_launches)
         byte_identity(work, lib[0])
         launches.update(device_seeded_path(work, dev, lib, host_out, host_stages))
         other_routes(work, dev, lib, host_out)
+        work7 = os.path.join(work, "scale")
+        os.makedirs(work7)
+        genome_scale(work7, dev, seed_rows, main_rate)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log("phases: " + ", ".join(f"{n} {s:.1f} s" for n, s in PHASES))

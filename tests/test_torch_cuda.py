@@ -461,3 +461,49 @@ def test_batchers_over_two_devices_equal_one(dev):
         two = run_batchers(dev)
     assert two == one
     assert all(f.launches > b for f, b in zip(launchers, before))
+
+
+@pytest.mark.cuda
+def test_seed_kernels_on_rows_past_2_31(dev):
+    """S1 (pass 1, and one sweep from a random pivot as pass 2 runs it) and
+    S3 on a synthetic wide table of 2^31 + 2^27 rows: the int64 arithmetic
+    of the state machines above 2^31 against their plain versions, out,
+    out_n and the overflow flags alike (chip_smoke.py phase 7d)."""
+    from arachne_tpu_torch.ops.cuda_seed import pass3_cuda, smem_pass_cuda
+    from arachne_tpu_torch.seeding_bench import synthetic_table, wide_seeding_parity
+
+    fm = synthetic_table(dev, n_blocks=(1 << 24) + (1 << 20))
+    assert fm.seq_len > 1 << 31 and fm.idt == torch.int64
+    before = smem_pass_cuda.launches, pass3_cuda.launches
+    assert wide_seeding_parity(fm, 256) > 0
+    assert (smem_pass_cuda.launches, pass3_cuda.launches) == (before[0] + 2, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_rank_kernel_on_an_index_beyond_the_l2(dev, tmp_path):
+    """K5 on the int32 tables of a real index whose record table exceeds
+    the L2 (a 56 Mbp genome of make_scale_genome, sampled suffix array), so
+    that it takes its four-lane path: equal to the host index's occ4 and to
+    the plain version, edge rows included (chip_smoke.py phase 7c)."""
+    from arachne_tpu_torch.index import FMIndex, build_fmindex, pack_reference, parse_fasta
+    from arachne_tpu_torch.ops.cuda_rank import rank_cuda
+    from arachne_tpu_torch.ops.fm_rank import DeviceFMIndex, occ4_device, occ4_torch
+    from arachne_tpu_torch.scripts.make_scale_genome import write_contig
+    from arachne_tpu_torch.seeding_bench import parity_rows
+
+    fasta = tmp_path / "g.fa"
+    rng = np.random.default_rng(7)
+    with open(fasta, "wb") as fh:
+        for c in range(4):
+            write_contig(fh, f"chr{c + 1}", 14_000_000, rng)
+    packed = pack_reference(parse_fasta(str(fasta)))
+    idx = FMIndex(packed, build_fmindex(packed, keep_full_sa=False))
+    fm = DeviceFMIndex.from_host(idx, dev)
+    assert fm.idt == torch.int32
+    assert DeviceFMIndex.table_bytes(idx) > torch.cuda.get_device_properties(dev).L2_cache_size
+    ks = parity_rows(fm, 4096)
+    before = rank_cuda.launches
+    got = occ4_device(fm, ks)
+    assert rank_cuda.launches == before + 1
+    assert torch.equal(got, occ4_torch(fm, ks))
+    assert np.array_equal(got.cpu().numpy(), idx.occ4(ks.cpu().numpy().astype(np.int64)))
