@@ -65,31 +65,40 @@ def quiet(path):
         yield
 
 
-def write_genome(path, n, seed=GENOME_SEED):
-    """A random n bp single-contig FASTA."""
-    rng = np.random.default_rng(seed)
-    seq = "".join("ACGT"[i] for i in rng.integers(0, 4, n))
+def write_fasta(path, contig, seq):
+    """A single-contig FASTA of ``seq``, 70 bases a line."""
     with open(path, "w") as fh:
-        fh.write(">chr_bench\n")
+        fh.write(f">{contig}\n")
         for i in range(0, len(seq), 70):
             fh.write(seq[i : i + 70] + "\n")
 
 
-def simulate_library(ref, work, barcodes, molecules, pairs, molecule_len, indel_rate, seed):
-    """Linked reads of ``ref`` under ``work``: returns (r1, r2, pairs
-    simulated, seconds)."""
+def write_genome(path, n, seed=GENOME_SEED):
+    """A random n bp single-contig FASTA."""
+    rng = np.random.default_rng(seed)
+    write_fasta(path, "chr_bench", "".join("ACGT"[i] for i in rng.integers(0, 4, n)))
+
+
+def simulate_reads(ref, work, cfg):
+    """Linked reads of ``ref`` under ``work`` as ``SimConfig`` ``cfg`` says:
+    returns (r1, r2, pairs simulated, seconds)."""
     from .index import parse_fasta
-    from .io.simulate import SimConfig, simulate_linked_reads
+    from .io.simulate import simulate_linked_reads
 
     r1, r2 = os.path.join(work, "m.R1.fq.gz"), os.path.join(work, "m.R2.fq.gz")
     t0 = time.perf_counter()
-    n = simulate_linked_reads(
-        parse_fasta(ref), r1, r2,
-        SimConfig(n_barcodes=barcodes, molecules_per_barcode=molecules,
-                  pairs_per_molecule=pairs, molecule_len=molecule_len,
-                  indel_rate=indel_rate, vary_quals=True, seed=seed),
-    )
+    n = simulate_linked_reads(parse_fasta(ref), r1, r2, cfg)
     return r1, r2, n, time.perf_counter() - t0
+
+
+def simulate_library(ref, work, barcodes, molecules, pairs, molecule_len, indel_rate, seed):
+    """Linked reads of ``ref`` under ``work``, quals varied: returns (r1,
+    r2, pairs simulated, seconds)."""
+    from .io.simulate import SimConfig
+
+    return simulate_reads(ref, work, SimConfig(
+        n_barcodes=barcodes, molecules_per_barcode=molecules, pairs_per_molecule=pairs,
+        molecule_len=molecule_len, indel_rate=indel_rate, vary_quals=True, seed=seed))
 
 
 def make_library(work, genome_bp=2_000_000, barcodes=320, molecules=3, pairs=20,
@@ -243,6 +252,7 @@ def timed_run(engine, out, lib, threads, checked=False):
     run = {
         "engine": engine,
         "pairs": stats.reads,
+        "barcodes": stats.barcodes,
         "pairs_per_s": stats.reads / stats.elapsed,
         "align_loop_s": stats.elapsed,
         "stages_s": {k: v["seconds"] for k, v in TIMERS.as_dict().items()},

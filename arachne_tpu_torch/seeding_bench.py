@@ -37,11 +37,12 @@ import os
 import shutil
 import tempfile
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from . import device
 from .config import MemOptions
 from .device import cuda_ms, device_ms, graph_ms, probe, resolve_device
 from .ops.cuda_seed import pass3_cuda, smem_pass_cuda
@@ -178,21 +179,48 @@ def sample_reads(fwd: np.ndarray, n: int, length: int = 150, seed: int = 3) -> L
     return reads
 
 
-def device_parts_ms(fn) -> Dict[str, float]:
+def device_parts_ms(fn) -> Optional[Dict[str, float]]:
     """Device milliseconds of one call of ``fn`` from torch.profiler, split
     into S1 (every pass-1 and pass-2 launch), S3, copies and other device
-    work (the fills of fresh buffers)."""
-    from torch.profiler import ProfilerActivity, profile
+    work (the fills of fresh buffers); None if no profiler run was whole.
+    As in ``device.device_ms``, a warm call comes first in a step of its
+    own, and a run whose S1 and S3 records are not as many as the call's
+    launches (``smem_pass_cuda.launches``, ``pass3_cuda.launches``) lost
+    some and would read low: it is thrown away (counted in
+    ``device.lost_profiles``) and made again, up to ``device.PROFILE_TRIES``
+    runs in all."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    parts = {"s1": 0.0, "s3": 0.0, "copies": 0.0, "other": 0.0}
-    for e in prof.key_averages():
-        key = ("s1" if "smem_pass_kernel" in e.key else "s3" if "pass3_kernel" in e.key
-               else "copies" if "Memcpy" in e.key else "other")
-        parts[key] += e.self_device_time_total / 1e3
-    return parts
+    for _ in range(device.PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            s1_before, s3_before = smem_pass_cuda.launches, pass3_cuda.launches
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+        want = {"s1": smem_pass_cuda.launches - s1_before,
+                "s3": pass3_cuda.launches - s3_before}
+        parts = {"s1": 0.0, "s3": 0.0, "copies": 0.0, "other": 0.0}
+        seen = {"s1": 0, "s3": 0}
+        for e in prof.key_averages():
+            key = ("s1" if "smem_pass_kernel" in e.key else "s3" if "pass3_kernel" in e.key
+                   else "copies" if "Memcpy" in e.key else "other")
+            parts[key] += e.self_device_time_total / 1e3
+            if key in seen:
+                seen[key] += e.count
+        if seen == want:
+            return parts
+        device.lost_profiles += 1
+    return None
+
+
+def ms_text(ms: Optional[float]) -> str:
+    """A device time for the log: None (no whole profiler run) is "not
+    measured"."""
+    return "not measured" if ms is None else f"{ms:.3f} ms"
 
 
 def seeding_rates(idx, fm: DeviceFMIndex, reads: List[np.ndarray], opt) -> Dict[str, float]:
@@ -211,7 +239,7 @@ def seeding_rates(idx, fm: DeviceFMIndex, reads: List[np.ndarray], opt) -> Dict[
     t_dev = time.perf_counter() - t0
     s1_launches = smem_pass_cuda.launches - s1_before
     s3_launches = pass3_cuda.launches - s3_before
-    parts = device_parts_ms(lambda: collect_seeds_device(reads, opt, fm))
+    parts = device_parts_ms(lambda: collect_seeds_device(reads, opt, fm)) or {}
     t0 = time.perf_counter()
     host_seeds = collect_seeds_native(idx, reads, opt)
     t_host = time.perf_counter() - t0
@@ -219,10 +247,10 @@ def seeding_rates(idx, fm: DeviceFMIndex, reads: List[np.ndarray], opt) -> Dict[
     if bad:
         raise AssertionError(f"device seeds differ from the native collector's: reads {bad[:10]}")
     n = len(reads)
-    kernel_ms = parts["s1"] + parts["s3"]
+    kernel_ms = parts["s1"] + parts["s3"] if parts else None
     return {"reads": n, "s1_launches": s1_launches, "s3_launches": s3_launches,
-            "s1_device_ms": parts["s1"], "s3_device_ms": parts["s3"],
-            "copy_device_ms": parts["copies"], "other_device_ms": parts["other"],
+            "s1_device_ms": parts.get("s1"), "s3_device_ms": parts.get("s3"),
+            "copy_device_ms": parts.get("copies"), "other_device_ms": parts.get("other"),
             "kernel_reads_per_s": n / kernel_ms * 1e3 if kernel_ms else None,
             "device_s": t_dev, "device_reads_per_s": n / t_dev,
             "native_s": t_host, "native_reads_per_s": n / t_host}
@@ -282,9 +310,9 @@ def main(argv=None) -> dict:
     s = res["seeding"]
     print(f"seeding {s['reads']} reads: collect_seeds_device {s['device_reads_per_s']:.0f} "
           f"reads/s, native {s['native_reads_per_s']:.0f} reads/s, seeds identical; device "
-          f"time of one call: S1 {s['s1_device_ms']:.3f} ms ({s['s1_launches']} launches) + "
-          f"S3 {s['s3_device_ms']:.3f} ms ({s['s3_launches']}), copies "
-          f"{s['copy_device_ms']:.3f} ms, other {s['other_device_ms']:.3f} ms", flush=True)
+          f"time of one call: S1 {ms_text(s['s1_device_ms'])} ({s['s1_launches']} launches) + "
+          f"S3 {ms_text(s['s3_device_ms'])} ({s['s3_launches']}), copies "
+          f"{ms_text(s['copy_device_ms'])}, other {ms_text(s['other_device_ms'])}", flush=True)
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(res, fh, indent=1)

@@ -93,7 +93,17 @@ result line):
          beside phase 2b's, with bounds at phase 1's HBM copy rate; then
          ``seeding_bench`` on this index;
      7d. S1 and S3 against their plain versions on random reads over the
-         synthetic GRCh38-sized table, whose rows pass 2^31.
+         synthetic GRCh38-sized table, whose rows pass 2^31;
+  8. the port's bench: ``python -m arachne_tpu_torch.bench --trials 1`` in
+     a subprocess (fixtures cached under build/bench_cache), which must
+     exit 0 with its six lines in the reference's order, each correct (the
+     end-to-end lines' output shards at the SHA-256 that
+     arachne_tpu_torch/bench_reference.json records from the JAX
+     package's run on the same fixture); each line is logged.  Then the
+     repeat-genome and MAPQ-calibration fixtures through the main path with
+     ARACHNE_DEVICE_SEEDING=1, counted from zero: K1-K4, S1 and S3 must
+     launch, no read may be redone, and the shards must have the recorded
+     digests.
 
 The last three lines of standard output are the kernel table (one JSON
 object, with each kernel's bound and, where one PyTorch call computes the
@@ -508,19 +518,10 @@ MAIN_LAUNCHERS = ("K1", "K2", "K3 score", "K3 z", "K4")
 
 
 def launchers():
-    from arachne_tpu_torch.ops.cuda_extend import extend_cuda
-    from arachne_tpu_torch.ops.cuda_global import (
-        global_score_cuda, global_z_cuda, traceback_cuda,
-    )
-    from arachne_tpu_torch.ops.cuda_local import local_cuda
+    from arachne_tpu_torch import bench
     from arachne_tpu_torch.ops.cuda_rank import rank_cuda
-    from arachne_tpu_torch.ops.cuda_seed import pass3_cuda, smem_pass_cuda
 
-    return {
-        "K1": extend_cuda, "K2": local_cuda, "K3 score": global_score_cuda,
-        "K3 z": global_z_cuda, "K4": traceback_cuda, "K5": rank_cuda,
-        "S1": smem_pass_cuda, "S3": pass3_cuda,
-    }
+    return dict(bench.launchers(), K5=rank_cuda)
 
 
 def reset_counts():
@@ -770,6 +771,7 @@ def device_seeded_run(work, dev, lib, host_out, host_stages):
     from arachne_tpu_torch.runtime.accuracy import evaluate_sam
     from arachne_tpu_torch.runtime.timers import TIMERS
     from arachne_tpu_torch import cli
+    from arachne_tpu_torch.bench import device_seeding
     from arachne_tpu_torch.measure import quiet, same_shards
     from arachne_tpu_torch.ops import fm_seed
 
@@ -777,16 +779,8 @@ def device_seeded_run(work, dev, lib, host_out, host_stages):
     reset_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     out = os.path.join(work, "out_device_seeding")
-    saved = os.environ.get("ARACHNE_DEVICE_SEEDING")
-    os.environ["ARACHNE_DEVICE_SEEDING"] = "1"
-    try:
-        with quiet(os.path.join(work, "device_seeding.log")):
-            stats = cli.main(["align", "--engine", "cuda", "--sam", "-t", "2", out, ref, r1, r2])
-    finally:
-        if saved is None:
-            del os.environ["ARACHNE_DEVICE_SEEDING"]
-        else:
-            os.environ["ARACHNE_DEVICE_SEEDING"] = saved
+    with device_seeding(), quiet(os.path.join(work, "device_seeding.log")):
+        stats = cli.main(["align", "--engine", "cuda", "--sam", "-t", "2", out, ref, r1, r2])
     launches = {k: fn.launches for k, fn in launchers().items()}
     log(f"   launches in the device-seeded path: {launches}")
     if not all(launches[k] > 0 for k in MAIN_LAUNCHERS + ("S1", "S3")):
@@ -1167,6 +1161,61 @@ def genome_scale(work, dev, l2_rows, main_rate):
     return res
 
 
+# seconds the bench subprocess of phase 8 may take (about 4 minutes on the
+# card: fixtures and their indexes, then six lines)
+BENCH_TIMEOUT = 600
+BENCH_METRICS = ["seed_extension_DP_GCUPS", "repeat_genome_pairs_per_sec",
+                 "indel_e2e_pairs_per_sec", "mapq_expected_calibration_error",
+                 "end_to_end_device_seeded_pairs_per_sec", "end_to_end_pairs_per_sec"]
+
+
+@phase("8 bench")
+def bench_phase(work, dev):
+    from arachne_tpu_torch import bench
+    from arachne_tpu_torch.ops import fm_seed
+
+    cache = os.path.join(ROOT, "build", "bench_cache")
+    (rc,), (text,) = run_logged(
+        [[sys.executable, "-m", "arachne_tpu_torch.bench", "--trials", "1", "--cache", cache]],
+        [os.path.join(work, "bench.log")], [cli_env()], BENCH_TIMEOUT)
+    lines = [json.loads(ln) for ln in text.splitlines() if ln.startswith('{"metric"')]
+    for line in lines:
+        d = dict(line["detail"])
+        for bulky in ("accuracy_csv", "calibration", "stage_seconds", "fixture_sha256",
+                      "output_sha256"):
+            d.pop(bulky, None)
+        log(f"   {line['metric']} = {line['value']} {line['unit']}, vs_baseline "
+            f"{line['vs_baseline']}, correct {line['correct']}; {json.dumps(d)}")
+    require_rc("8 bench", rc, 0, text)
+    if [line["metric"] for line in lines] != BENCH_METRICS:
+        raise AssertionError(f"8: the bench printed {[ln['metric'] for ln in lines]}")
+    if not all(line["correct"] is True for line in lines):
+        raise AssertionError("8: a bench line is not correct")
+    # device seeding on planted repeat families and a 15,000-pair barcode
+    reference = bench.load_reference()
+    rates = {}
+    for name in ("repeat", "calibration"):
+        kind = bench.LINES[name][0]
+        lib = bench.FIXTURES[kind](cache)
+        reset_counts()
+        with bench.device_seeding():
+            run = bench.aligned("cuda", lib, reference[kind])
+        launches = {k: fn.launches for k, fn in launchers().items()}
+        best = run["best"]
+        log(f"   {name} fixture device-seeded: {best['pairs']} pairs, "
+            f"{best['pairs_per_s']:.1f} pairs/s, accuracy {best['accuracy']:.4f}, launches "
+            f"{launches}, {fm_seed.overflow_redos} reads redone, peak device memory "
+            f"{best['peak_device_bytes']} bytes, shards at the recorded digests: {run['correct']}")
+        if not all(launches[k] > 0 for k in MAIN_LAUNCHERS + ("S1", "S3")):
+            raise AssertionError(f"8 {name}: a kernel of the path never launched: {launches}")
+        if fm_seed.overflow_redos:
+            raise AssertionError(f"8 {name}: {fm_seed.overflow_redos} reads were redone")
+        if not run["correct"]:
+            raise AssertionError(f"8 {name}: the device-seeded shards are not the reference's")
+        rates[name] = best["pairs_per_s"]
+    return lines, rates
+
+
 KERNELS = [
     ("K1", "extend_cuda", "arachne_tpu_torch/ops/csrc/extend.cu",
      "arachne_tpu/ops/pallas_extend.py:51"),
@@ -1222,13 +1271,16 @@ def main() -> int:
         work7 = os.path.join(work, "scale")
         os.makedirs(work7)
         genome_scale(work7, dev, seed_rows, main_rate)
+        bench_phase(work, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log("phases: " + ", ".join(f"{n} {s:.1f} s" for n, s in PHASES))
+    kernel_rate = seeding["kernel_reads_per_s"]
     log(f"seeding on {seeding['reads']} reads: collect_seeds_device "
         f"{seeding['device_reads_per_s']:.0f} reads/s (device time of all its S1/S3 "
-        f"launches alone: {seeding['kernel_reads_per_s']} reads/s), native collector "
-        f"{seeding['native_reads_per_s']:.0f} reads/s")
+        f"launches alone: "
+        f"{'not measured' if kernel_rate is None else f'{kernel_rate:.0f} reads/s'}), native "
+        f"collector {seeding['native_reads_per_s']:.0f} reads/s")
     table = {
         "kernels": [
             dict(

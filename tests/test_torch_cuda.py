@@ -507,3 +507,19 @@ def test_rank_kernel_on_an_index_beyond_the_l2(dev, tmp_path):
     assert rank_cuda.launches == before + 1
     assert torch.equal(got, occ4_torch(fm, ks))
     assert np.array_equal(got.cpu().numpy(), idx.occ4(ks.cpu().numpy().astype(np.int64)))
+
+
+@pytest.mark.cuda
+def test_bench_gcups_line_on_card(dev):
+    from arachne_tpu_torch import bench
+    from arachne_tpu_torch.ops.cuda_extend import extend_cuda
+
+    before = extend_cuda.launches
+    line = bench.gcups_line(dev, B=512, reps=5)
+    assert line["metric"] == "seed_extension_DP_GCUPS" and line["correct"] is True
+    d = line["detail"]
+    assert d["batch"] == 512 and d["cells"] == 512 * bench.band_cells(100, 250, d["band"])
+    assert 0 < d["cells_needed"] <= d["cells"]
+    assert line["value"] > 0 and d["batch_ms"] > 0 and line["vs_baseline"] > 1
+    assert torch.cuda.get_device_name(dev) in d["device"]
+    assert extend_cuda.launches > before
