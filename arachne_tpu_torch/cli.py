@@ -117,17 +117,13 @@ def run_align(args):
         assert_uniform_int,
         init_distributed,
         shard_suffix,
+        shutdown_distributed,
     )
     from .rfa.engine import do_rfa_for_one_barcode, process_barcodes
     from .runtime.checkpoint import CheckpointedStream
     from .runtime.stats import RunStats
 
     print(f"Starting arachne-tpu. Version: {__version__}")
-    if args.index_mode == "sharded":
-        raise SystemExit(
-            "--index-mode sharded: the port never shards the FM-index (one card "
-            "holds a GRCh38 index's tables); use auto or replicated"
-        )
     ctx = init_distributed(args.coordinator or None, args.num_processes, args.process_id)
     host_sfx = shard_suffix(ctx)
     if ctx.initialized:
@@ -328,6 +324,7 @@ def run_align(args):
         f"{global_stats.barcodes} barcodes, {stats.reads / max(dt, 1e-9):.1f} pairs/s"
         + (f" (host {ctx.process_index}: {stats.reads} pairs)" if ctx.process_count > 1 else "")
     )
+    shutdown_distributed(ctx)
     return stats
 
 
@@ -401,8 +398,12 @@ def main(argv=None):
     )
     al.add_argument(
         "--index-mode", choices=["auto", "replicated", "sharded"], default="auto",
-        help="FM-index placement: every device holds the whole index (auto = "
-        "replicated); sharded is refused, the port never shards it",
+        help="FM-index placement for device seeding: replicated = the seeding card holds "
+        "the whole rank table; sharded = the table split by block across the process's "
+        "cards (those the batchers use, ARACHNE_DEVICE_DP), each record read from the "
+        "card that holds it (one card: replicated); auto = sharded exactly when there "
+        "is more than one card and the table exceeds ARACHNE_HBM_BUDGET bytes (default: "
+        "the card's free memory)",
     )
     al.add_argument("--checkpoint", default="", help="checkpoint manifest path for resume")
     al.add_argument(

@@ -47,6 +47,19 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def timed_ms(fn):
+    """(fn(), the milliseconds of that one call on the current CUDA device
+    by CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
 def graph_ms(fn, reps: int) -> float:
     """Milliseconds per call of ``fn`` on the current CUDA device: CUDA
     events around the replay of a CUDA graph that holds ``reps`` calls,

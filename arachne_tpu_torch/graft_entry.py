@@ -8,12 +8,13 @@ args)``: ``ops/sw_extend.extend_batch`` (kernel K1 on CUDA tensors, its
 plain version on CPU ones) with the scoring options bound, and the
 reference's example batch, made with numpy from the same seed, as tensors
 on the card unless the caller asks for the CPU.  ``dryrun_multichip(n)``
-keeps the reference's checks but its mesh, which the port has none of
-(the index is never sharded): K5 and device seeding on a 4096-base
-genome's index against the host, a tiny extension batch, and
-``BatchExtender`` over ``devicepool.pinned([dev] * n)`` against the
-single-device dispatch.  Both run on the card by default and raise without
-one.
+makes the reference's checks over a mesh of n entries of the device pool
+(``devicepool.pinned([dev] * n)``, parallel/mesh.py): a 4096-base genome's
+index replicated on each entry and sharded by block across them, K5 and
+device seeding against the sharded tables held to the host, a tiny
+extension batch through ``sharded_extend``, and ``BatchExtender`` over the
+pool against the single-device dispatch.  Both run on the card by default
+and raise without one.
 """
 
 from __future__ import annotations
@@ -64,57 +65,45 @@ def entry(device="cuda"):
 
 
 def dryrun_multichip(n_devices: int, device="cuda") -> None:
-    """The reference's dry run on one card (or the CPU) with the batchers'
-    chunks spread over ``n_devices`` entries of the device pool; raises on
-    any mismatch."""
+    """The reference's dry run over a mesh of ``n_devices`` pool entries on
+    one card (or the CPU), with the batchers' chunks spread over them;
+    raises on any mismatch."""
     from .align.smem import collect_seeds
     from .config import MemOptions
     from .device import resolve_device
     from .index import FMIndex, build_fmindex, pack_reference, unpack_2bit
     from .ops import devicepool
-    from .ops.fm_rank import DeviceFMIndex, occ4_device
+    from .ops.fm_rank import occ4_device
     from .ops.fm_seed import collect_seeds_device
-    from .ops.params import kernel_params
-    from .ops.sw_extend import BatchExtender, extend_batch
+    from .ops.sw_extend import BatchExtender
+    from .parallel.mesh import (
+        ShardedFMTables,
+        make_mesh,
+        replicated_index_arrays,
+        sharded_extend,
+    )
 
     dev = resolve_device(device)
     opt = MemOptions()
     rng = np.random.default_rng(0)
 
-    # tiny reference and index; its rank tables on the device
+    # tiny reference and index, replicated and sharded layouts
     genome = "".join(np.array(list("ACGT"))[rng.integers(0, 4, 4096)])
     packed = pack_reference([("c", "", genome)])
     idx = FMIndex(packed, build_fmindex(packed))
-    dfm = DeviceFMIndex.from_host(idx, dev)
     ks = rng.integers(0, idx.seq_len, 64).astype(np.int64)
-    got = occ4_device(dfm, torch.from_numpy(ks).to(dev, dfm.idt)).cpu().numpy()
-    if not np.array_equal(got, idx.occ4(ks)):
-        raise AssertionError("occ4 on the device differs from the host index")
-    # device seeding against the scalar collector
     fwd = unpack_2bit(packed.pac, 0, packed.l_pac)
     reads = [fwd[100 * i : 100 * i + 80].copy() for i in range(4)]
-    for r, got_seeds in zip(reads, collect_seeds_device(reads, opt, dfm)):
-        if got_seeds != collect_seeds(idx, r, opt):
-            raise AssertionError("device seeding differs from the scalar collector")
 
-    # a tiny extension batch: a 32-base exact match on an h0 of 19; a chunk
-    # of 8 for each pool entry below
+    # a tiny extension batch: a 32-base exact match on an h0 of 19; the
+    # production batcher takes it in chunks of 8, round-robin over the
+    # pool, and must be byte-identical to one device's dispatch
     B = 8 * max(n_devices, 1)
     tmax, qmax = 64, 48
     ts = rng.integers(0, 4, (B, tmax)).astype(np.int8)
     qs = np.full((B, qmax), 4, np.int8)
     qs[:, :32] = ts[:, :32]
-    p = kernel_params(opt, dev)
-    host = (qs, ts, np.full(B, 32, np.int32), np.full(B, tmax, np.int32),
-            np.full(B, 100, np.int32), np.full(B, 19, np.int32))
-    out = extend_batch(*(torch.from_numpy(a).to(dev) for a in host), p.mat, **p.gaps(),
-                       zdrop=p.zdrop)
-    scores = out[0].cpu().numpy()
-    if scores.shape != (B,) or int(scores[0]) != 19 + 32:
-        raise AssertionError(f"unexpected extension scores {scores[:4]}")
 
-    # the production batcher over the pool: chunks of 8 round-robin over
-    # n_devices entries, byte-identical to one device's dispatch
     def batched():
         be = BatchExtender(opt, dev)
         be.CHUNK = 8
@@ -123,6 +112,26 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
         return be.run()
 
     with devicepool.pinned([dev] * n_devices):
+        mesh = make_mesh(n_devices)
+        for dfm in replicated_index_arrays(mesh, idx):
+            k = torch.from_numpy(ks).to(dfm.device, dfm.idt)
+            if not np.array_equal(occ4_device(dfm, k).cpu().numpy(), idx.occ4(ks)):
+                raise AssertionError("replicated occ4 on the device differs from the host index")
+        # the resident sharded rank layer: K5 and the seeding kernels read
+        # each record from the entry that holds it
+        tables = ShardedFMTables(idx, mesh)
+        if not np.array_equal(tables.occ4(ks), idx.occ4(ks)):
+            raise AssertionError("sharded occ4 differs from the host index")
+        for r, got_seeds in zip(reads, collect_seeds_device(reads, opt, tables)):
+            if got_seeds != collect_seeds(idx, r, opt):
+                raise AssertionError("sharded device seeding differs from the scalar collector")
+        # data-parallel extension batch: contiguous parts, one an entry
+        out = sharded_extend(mesh, opt, qs, ts, np.full(B, 32, np.int32),
+                             np.full(B, tmax, np.int32), np.full(B, 100, np.int32),
+                             np.full(B, 19, np.int32))
+        scores = out[0]
+        if scores.shape != (B,) or int(scores[0]) != 19 + 32:
+            raise AssertionError(f"unexpected extension scores {scores[:4]}")
         multi = batched()
     saved = os.environ.get("ARACHNE_DEVICE_DP")
     os.environ["ARACHNE_DEVICE_DP"] = "0"

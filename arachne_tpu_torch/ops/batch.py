@@ -28,7 +28,7 @@ from ..config import MemOptions
 from ..index.fmindex import FMIndex
 from ..runtime.timers import TIMERS
 
-from .fm_rank import DeviceFMIndex
+from .fm_rank import RankTables
 from .fm_seed import collect_seeds_device
 from .sw_extend import BatchExtender
 
@@ -79,11 +79,12 @@ def batch_align_single(
     reads: List[np.ndarray],
     extender_batch: BatchExtender,
     mat: Optional[np.ndarray] = None,
-    dfm: Optional[DeviceFMIndex] = None,
+    dfm: Optional[RankTables] = None,
 ) -> List[List[AlnReg]]:
     """mem_align1_core over a batch of reads with device-batched extension.
 
-    With ``dfm`` (the index's DeviceFMIndex) seeding runs on its device too."""
+    With ``dfm`` (the index's rank tables, replicated or sharded) seeding
+    runs on its device too."""
     if mat is None:
         mat = opt.scoring_matrix()
     if dfm is not None:

@@ -57,6 +57,15 @@ _SIGNATURES = {
     # table, L2, primary, seq_len, wide, qs, qlens, min_seed_len, max_intv,
     # R, L, MAXS, out, out_n, overflow, stream
     "arachne_seed_pass3": [_P] * 2 + [_LL, _LL, _I, _P, _P, _LL, _LL] + [_I] * 3 + [_P] * 4,
+    # the same three on a table split across cards: its shards' addresses
+    # (an array on the launching card) and the records a shard holds in
+    # place of the table
+    "arachne_rank_sharded": [_P, _LL, _P, _LL, _LL, _I, _P, _LL, _P, _P],
+    "arachne_smem_pass_sharded": [_P, _LL, _P, _LL, _LL, _I] + [_P] * 4 + [_I] * 5 + [_P] * 5,
+    "arachne_seed_pass3_sharded": [_P, _LL, _P, _LL, _LL, _I, _P, _P, _LL, _LL] + [_I] * 3
+    + [_P] * 4,
+    # device, peer
+    "arachne_enable_peer_access": [_I, _I],
     # qs, ts, qlens, tlens, ws, h0s, mat, B, qmax, tmax,
     # o_del, e_del, o_ins, e_ins, zdrop, out, stream
     "arachne_extend": [_P] * 7 + [_I] * 8 + [_P, _P],
@@ -144,9 +153,12 @@ def build_library(csrc: str, info: Optional[Dict[str, object]] = None) -> ctypes
                     seconds=time.perf_counter() - t0 if log else 0.0)
     lib = ctypes.CDLL(lib_path)
     for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        # another checkout's library may predate an entry point; calling
+        # one it lacks raises in ``launch``
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     lib.arachne_error_string.argtypes = [ctypes.c_int]
     lib.arachne_error_string.restype = ctypes.c_char_p
     return lib

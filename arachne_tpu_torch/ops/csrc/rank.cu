@@ -24,6 +24,9 @@
 // table that fits the L2 is read by one thread per query (rank.cuh's
 // arachne_occ4_load and arachne_occ4_count): there the group's four times
 // as many threads cost more than its fewer, wider loads save (PERF.md).
+// Both designs take the table as one array (arachne_rank) or split across
+// cards (arachne_rank_sharded, rank.cuh's ArachneShardedTable), and pick
+// between them by the whole table's size either way.
 #include <cuda_runtime.h>
 
 #include "rank.cuh"
@@ -39,9 +42,9 @@ __device__ __forceinline__ void load_L2(const T* __restrict__ L2_g, T (&L2)[5]) 
 }
 
 // one thread per query
-template <typename T>
+template <typename T, typename Table>
 __global__ void __launch_bounds__(RANK_THREADS) rank_kernel(
-    const uint4* __restrict__ table, const T* __restrict__ L2_g, T primary, T seq_len,
+    const Table table, const T* __restrict__ L2_g, T primary, T seq_len,
     const T* __restrict__ ks, long long n, T* __restrict__ out)
 {
     const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -55,9 +58,9 @@ __global__ void __launch_bounds__(RANK_THREADS) rank_kernel(
 }
 
 // four lanes per query
-template <typename T>
+template <typename T, typename Table>
 __global__ void __launch_bounds__(RANK_THREADS) rank_group_kernel(
-    const uint4* __restrict__ table, const T* __restrict__ L2_g, T primary, T seq_len,
+    const Table table, const T* __restrict__ L2_g, T primary, T seq_len,
     const T* __restrict__ ks, long long n, T* __restrict__ out)
 {
     constexpr int CC = arachne_count_chunks<T>();
@@ -124,15 +127,16 @@ bool beyond_l2(long long seq_len) {
     return ((seq_len + 127) / 128 + 1) * 64 > (long long)l2;
 }
 
-template <typename T>
-int launch_rank(const void* table, const void* L2, long long primary, long long seq_len,
+template <typename T, typename Table>
+int launch_rank(Table table, const void* L2, long long primary, long long seq_len,
                 const void* ks, long long n, void* out, void* stream)
 {
+    if (n <= 0) return 0;
     const int lanes = beyond_l2(seq_len) ? 4 : 1;
     const long long blocks = (n * lanes + RANK_THREADS - 1) / RANK_THREADS;
-    auto kernel = lanes == 4 ? rank_group_kernel<T> : rank_kernel<T>;
+    auto kernel = lanes == 4 ? rank_group_kernel<T, Table> : rank_kernel<T, Table>;
     kernel<<<(unsigned)blocks, RANK_THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint4*)table, (const T*)L2, (T)primary, (T)seq_len, (const T*)ks, n, (T*)out);
+        table, (const T*)L2, (T)primary, (T)seq_len, (const T*)ks, n, (T*)out);
     return (int)cudaGetLastError();
 }
 
@@ -144,9 +148,49 @@ extern "C" int arachne_rank(
     const void* table, const void* L2, long long primary, long long seq_len, int wide,
     const void* ks, long long n, void* out, void* stream)
 {
-    if (n <= 0) return 0;
-    if (wide) return launch_rank<long long>(table, L2, primary, seq_len, ks, n, out, stream);
-    return launch_rank<int>(table, L2, primary, seq_len, ks, n, out, stream);
+    const ArachneFlatTable t{(const uint4*)table};
+    if (wide) return launch_rank<long long>(t, L2, primary, seq_len, ks, n, out, stream);
+    return launch_rank<int>(t, L2, primary, seq_len, ks, n, out, stream);
+}
+
+// arachne_rank on a table split across cards: shards, an array on the
+// launching card, holds the address of each range of ``per`` records (the
+// last range padded with zero records), each on 64 bytes; a range on
+// another card needs peer access to it (arachne_enable_peer_access).
+extern "C" int arachne_rank_sharded(
+    const void* shards, long long per, const void* L2, long long primary, long long seq_len,
+    int wide, const void* ks, long long n, void* out, void* stream)
+{
+    const auto s = (const uint4* const*)shards;
+    if (wide)
+        return launch_rank<long long>(ArachneShardedTable<long long>{s, per}, L2, primary,
+                                      seq_len, ks, n, out, stream);
+    return launch_rank<int>(ArachneShardedTable<int>{s, (int)per}, L2, primary, seq_len, ks, n,
+                            out, stream);
+}
+
+// Let kernels launched on card ``device`` read the memory of card ``peer``
+// (cudaDeviceEnablePeerAccess; enabling it twice is no error).  Returns
+// cudaErrorPeerAccessUnsupported where the pair cannot: the caller raises,
+// and never copies the peer's memory over instead.
+extern "C" int arachne_enable_peer_access(int device, int peer)
+{
+    if (device == peer) return 0;
+    int can = 0;
+    cudaError_t e = cudaDeviceCanAccessPeer(&can, device, peer);
+    if (e != cudaSuccess) return (int)e;
+    if (!can) return (int)cudaErrorPeerAccessUnsupported;
+    int prev = 0;
+    e = cudaGetDevice(&prev);
+    if (e == cudaSuccess) e = cudaSetDevice(device);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaDeviceEnablePeerAccess(peer, 0);
+    if (e == cudaErrorPeerAccessAlreadyEnabled) {
+        cudaGetLastError();   // not sticky: clear it, or the next launch would report it
+        e = cudaSuccess;
+    }
+    const cudaError_t back = cudaSetDevice(prev);
+    return (int)(e != cudaSuccess ? e : back);
 }
 
 // cudaDeviceGetLimit(cudaLimitMaxL2FetchGranularity) of the current device

@@ -12,6 +12,15 @@
 // starts on 64 bytes, so a record is one aligned line, and a query reads
 // its first 3 (int) or 4 (long long) 16-byte chunks.
 //
+// The table is one array on the launching card (ArachneFlatTable) or, for
+// the block-sharded index (arachne_tpu_torch/parallel/mesh.py), split into
+// contiguous ranges of ``per`` records, range s at shards[s], each on the
+// card that holds it (ArachneShardedTable): a query loads its record from
+// that card, over NVLink when it is another one.  The counts in a record
+// are the whole index's, so the one range that holds a block answers a
+// query alone and no sum across ranges is needed.  Every routine below
+// takes either type; the two differ only in arachne_record.
+//
 // What bounds it on an H100: one random gather of one line per query.  A
 // table of a few MB stays in the 50 MB L2; a GRCh38-sized one (about 3.1
 // GB) does not, and each query then waits on HBM.  Counts and words in two
@@ -38,10 +47,32 @@ __host__ __device__ constexpr int arachne_count_chunks() { return sizeof(T) == 4
 template <typename T>
 __host__ __device__ constexpr int arachne_occ4_chunks() { return arachne_count_chunks<T>() + 2; }
 
+// The record table as one array.
+struct ArachneFlatTable {
+    const uint4* base;
+};
+
+// The record table in ranges of ``per`` records: record b is record b %
+// per of range b / per.
+template <typename T>
+struct ArachneShardedTable {
+    const uint4* const* shards;   // each range's first record; the array lies on the launching card
+    T per;
+};
+
 // Record ``block`` of the table, as 16-byte chunks.
 template <typename T>
-__device__ __forceinline__ const uint4* arachne_record(const uint4* __restrict__ table, T block) {
-    return table + block * 4;
+__device__ __forceinline__ const uint4* arachne_record(const ArachneFlatTable& table, T block) {
+    return table.base + block * 4;
+}
+
+template <typename T>
+__device__ __forceinline__ const uint4* arachne_record(const ArachneShardedTable<T>& table,
+                                                       T block) {
+    const T s = block / table.per;
+    const uint4* shard = reinterpret_cast<const uint4*>(
+        __ldg(reinterpret_cast<const unsigned long long*>(table.shards) + s));
+    return shard + (block - s * table.per) * 4;
 }
 
 // The bytes one occ4 query needs, as they arrive.
@@ -98,9 +129,9 @@ __device__ __forceinline__ uint4 arachne_ld16(const uint4* p) { return __ldg(p);
 
 // Load Occ(k, .)'s bytes into registers (K5 with one thread per query:
 // nothing to wait on but its own loads).
-template <typename T>
+template <typename T, typename Table>
 __device__ __forceinline__ ArachneOcc4Row<T> arachne_occ4_load(
-    const uint4* __restrict__ table, T primary, T seq_len, T k)
+    const Table& table, T primary, T seq_len, T k)
 {
     const T kk = arachne_occ4_row(primary, seq_len, k);
     const uint4* rec = arachne_record(table, kk >> 7);
@@ -150,9 +181,9 @@ __device__ __forceinline__ ArachneOcc4Ref<T> arachne_occ4_ref(T primary, T seq_l
 
 // Start the copies of Occ(k, .) (the first arachne_occ4_chunks<T>()
 // chunks of its record, one line) into chunks q0.. of the stage.
-template <typename T>
+template <typename T, typename Table>
 __device__ __forceinline__ void arachne_occ4_stage(
-    const uint4* __restrict__ table, T primary, T seq_len, T k, const ArachneStage& st, int q0)
+    const Table& table, T primary, T seq_len, T k, const ArachneStage& st, int q0)
 {
     const uint4* rec = arachne_record(table, arachne_occ4_row(primary, seq_len, k) >> 7);
 #pragma unroll

@@ -46,7 +46,9 @@
 // warp touching the same slot moves consecutive chunks.  The two interval
 // buffers swap roles: a forward sweep pushes into one, the backward steps
 // read it in reverse (no copy) and write the next step's intervals into the
-// other.
+// other.  Both kernels take the record table as one array (arachne_smem_pass,
+// arachne_seed_pass3) or split across cards (the _sharded entry points,
+// rank.cuh's ArachneShardedTable); only the address of a record differs.
 #include <cuda_runtime.h>
 
 #include "rank.cuh"
@@ -71,9 +73,9 @@ __device__ __forceinline__ T pick(const T (&a)[N], int i) {
     return v;
 }
 
-template <typename T>
+template <typename T, typename Table>
 struct Tables {
-    const uint4* table;   // the record table (rank.cuh)
+    Table table;          // the record table (rank.cuh)
     T L2[5];
     T primary;
     T seq_len;
@@ -121,10 +123,10 @@ struct Tables {
     }
 };
 
-template <typename T>
-__device__ Tables<T> load_tables(const uint4* table, const T* L2, long long primary,
-                                 long long seq_len) {
-    Tables<T> fm;
+template <typename T, typename Table>
+__device__ Tables<T, Table> load_tables(const Table& table, const T* L2, long long primary,
+                                        long long seq_len) {
+    Tables<T, Table> fm;
     fm.table = table;
     for (int c = 0; c < 5; ++c) fm.L2[c] = L2[c];
     fm.primary = (T)primary;
@@ -193,9 +195,9 @@ __device__ __forceinline__ int code_at(const int8_t* q, T qlen, T x) {
     return (x >= 0 && x < qlen) ? (int)q[x] : 4;
 }
 
-template <typename T, int G>
+template <typename T, int G, typename Table>
 __global__ void __launch_bounds__(SEED_THREADS) smem_pass_kernel(
-    const uint4* __restrict__ table, const T* __restrict__ L2, long long primary,
+    const Table table, const T* __restrict__ L2, long long primary,
     long long seq_len,
     const int8_t* __restrict__ qs, const int* __restrict__ qlens,
     const int* __restrict__ pivots0, const int* __restrict__ min_intvs,
@@ -204,7 +206,7 @@ __global__ void __launch_bounds__(SEED_THREADS) smem_pass_kernel(
 {
     const int r = blockIdx.x * blockDim.x + threadIdx.x;
     if (r >= R) return;
-    const Tables<T> fm = load_tables<T>(table, L2, primary, seq_len);
+    const Tables<T, Table> fm = load_tables<T>(table, L2, primary, seq_len);
     extern __shared__ uint4 stage_mem[];
     const ArachneStage st{stage_mem + threadIdx.x, (int)blockDim.x};
     const int8_t* q = qs + (size_t)r * L;
@@ -214,7 +216,7 @@ __global__ void __launch_bounds__(SEED_THREADS) smem_pass_kernel(
 
     // curr receives intervals; prev holds those a backward step extends,
     // in reverse slot order right after a forward sweep (prev_rev)
-    constexpr int CH = Tables<T>::CHUNKS;
+    constexpr int CH = Tables<T, Table>::CHUNKS;
     constexpr int IC = Intervals<T>::CHUNKS;
     Intervals<T> curr{ws + (size_t)r * 4, (size_t)R, 1};
     Intervals<T> prev{ws + (size_t)R * 4 * MAXC + (size_t)r * 4, (size_t)R, 1};
@@ -417,9 +419,9 @@ __global__ void __launch_bounds__(SEED_THREADS) smem_pass_kernel(
     overflow[r] = ovf;
 }
 
-template <typename T>
+template <typename T, typename Table>
 __global__ void __launch_bounds__(SEED_THREADS) pass3_kernel(
-    const uint4* __restrict__ table, const T* __restrict__ L2, long long primary,
+    const Table table, const T* __restrict__ L2, long long primary,
     long long seq_len,
     const int8_t* __restrict__ qs, const int* __restrict__ qlens,
     long long min_seed_len, long long max_intv, int R, int L, int MAXS,
@@ -427,7 +429,7 @@ __global__ void __launch_bounds__(SEED_THREADS) pass3_kernel(
 {
     const int r = blockIdx.x * blockDim.x + threadIdx.x;
     if (r >= R) return;
-    const Tables<T> fm = load_tables<T>(table, L2, primary, seq_len);
+    const Tables<T, Table> fm = load_tables<T>(table, L2, primary, seq_len);
     extern __shared__ uint4 stage_mem[];
     const ArachneStage st{stage_mem + threadIdx.x, (int)blockDim.x};
     const int8_t* q = qs + (size_t)r * L;
@@ -505,6 +507,34 @@ int launch_staged(K kernel, int chunks, int R, cudaStream_t s, A... args) {
     return (int)cudaGetLastError();
 }
 
+template <typename T, typename Table>
+int launch_smem_pass(Table table, const void* L2, long long primary, long long seq_len,
+                     const void* qs, const void* qlens, const void* pivots0,
+                     const void* min_intvs, int single_sweep, int R, int L, int MAXC, int MAXS,
+                     void* ws, void* out, void* out_n, void* overflow, void* stream)
+{
+    if (R <= 0) return 0;
+    if (MAXC < 1 || MAXS < 1) return (int)cudaErrorInvalidValue;
+    return launch_staged(
+        smem_pass_kernel<T, SEED_GROUP, Table>, stage_chunks<T, SEED_GROUP>(), R,
+        (cudaStream_t)stream, table, (const T*)L2, primary, seq_len, (const int8_t*)qs,
+        (const int*)qlens, (const int*)pivots0, (const int*)min_intvs, single_sweep, R, L, MAXC,
+        MAXS, (T*)ws, (T*)out, (T*)out_n, (bool*)overflow);
+}
+
+template <typename T, typename Table>
+int launch_pass3(Table table, const void* L2, long long primary, long long seq_len,
+                 const void* qs, const void* qlens, long long min_seed_len, long long max_intv,
+                 int R, int L, int MAXS, void* out, void* out_n, void* overflow, void* stream)
+{
+    if (R <= 0) return 0;
+    if (MAXS < 1) return (int)cudaErrorInvalidValue;
+    return launch_staged(
+        pass3_kernel<T, Table>, 2 * arachne_occ4_chunks<T>(), R, (cudaStream_t)stream, table,
+        (const T*)L2, primary, seq_len, (const int8_t*)qs, (const int*)qlens, min_seed_len,
+        max_intv, R, L, MAXS, (T*)out, (T*)out_n, (bool*)overflow);
+}
+
 }  // namespace
 
 // qs (R, L) int8 codes; qlens, pivots0, min_intvs (R,) int32; ws a
@@ -518,21 +548,32 @@ extern "C" int arachne_smem_pass(
     const void* pivots0, const void* min_intvs, int single_sweep, int R, int L,
     int MAXC, int MAXS, void* ws, void* out, void* out_n, void* overflow, void* stream)
 {
-    if (R <= 0) return 0;
-    if (MAXC < 1 || MAXS < 1) return (int)cudaErrorInvalidValue;
-    cudaStream_t s = (cudaStream_t)stream;
+    const ArachneFlatTable t{(const uint4*)table};
     if (wide)
-        return launch_staged(
-            smem_pass_kernel<long long, SEED_GROUP>, stage_chunks<long long, SEED_GROUP>(), R, s,
-            (const uint4*)table, (const long long*)L2, primary, seq_len, (const int8_t*)qs, (const int*)qlens, (const int*)pivots0,
-            (const int*)min_intvs, single_sweep, R, L, MAXC, MAXS, (long long*)ws,
-            (long long*)out, (long long*)out_n, (bool*)overflow);
-    return launch_staged(
-        smem_pass_kernel<int, SEED_GROUP>, stage_chunks<int, SEED_GROUP>(), R, s,
-        (const uint4*)table, (const int*)L2, primary, seq_len,
-        (const int8_t*)qs, (const int*)qlens, (const int*)pivots0,
-        (const int*)min_intvs, single_sweep, R, L, MAXC, MAXS, (int*)ws, (int*)out,
-        (int*)out_n, (bool*)overflow);
+        return launch_smem_pass<long long>(t, L2, primary, seq_len, qs, qlens, pivots0,
+                                           min_intvs, single_sweep, R, L, MAXC, MAXS, ws, out,
+                                           out_n, overflow, stream);
+    return launch_smem_pass<int>(t, L2, primary, seq_len, qs, qlens, pivots0, min_intvs,
+                                 single_sweep, R, L, MAXC, MAXS, ws, out, out_n, overflow,
+                                 stream);
+}
+
+// arachne_smem_pass on a table split across cards: shards and per as
+// rank.cu's arachne_rank_sharded takes them.
+extern "C" int arachne_smem_pass_sharded(
+    const void* shards, long long per, const void* L2, long long primary, long long seq_len,
+    int wide, const void* qs, const void* qlens,
+    const void* pivots0, const void* min_intvs, int single_sweep, int R, int L,
+    int MAXC, int MAXS, void* ws, void* out, void* out_n, void* overflow, void* stream)
+{
+    const auto s = (const uint4* const*)shards;
+    if (wide)
+        return launch_smem_pass<long long>(ArachneShardedTable<long long>{s, per}, L2, primary,
+                                           seq_len, qs, qlens, pivots0, min_intvs, single_sweep,
+                                           R, L, MAXC, MAXS, ws, out, out_n, overflow, stream);
+    return launch_smem_pass<int>(ArachneShardedTable<int>{s, (int)per}, L2, primary, seq_len,
+                                 qs, qlens, pivots0, min_intvs, single_sweep, R, L, MAXC, MAXS,
+                                 ws, out, out_n, overflow, stream);
 }
 
 extern "C" int arachne_seed_pass3(
@@ -541,17 +582,26 @@ extern "C" int arachne_seed_pass3(
     long long min_seed_len, long long max_intv, int R, int L, int MAXS,
     void* out, void* out_n, void* overflow, void* stream)
 {
-    if (R <= 0) return 0;
-    if (MAXS < 1) return (int)cudaErrorInvalidValue;
-    cudaStream_t s = (cudaStream_t)stream;
+    const ArachneFlatTable t{(const uint4*)table};
     if (wide)
-        return launch_staged(
-            pass3_kernel<long long>, 2 * arachne_occ4_chunks<long long>(), R, s,
-            (const uint4*)table, (const long long*)L2, primary, seq_len, (const int8_t*)qs, (const int*)qlens, min_seed_len, max_intv, R, L,
-            MAXS, (long long*)out, (long long*)out_n, (bool*)overflow);
-    return launch_staged(
-        pass3_kernel<int>, 2 * arachne_occ4_chunks<int>(), R, s,
-        (const uint4*)table, (const int*)L2, primary, seq_len,
-        (const int8_t*)qs, (const int*)qlens, min_seed_len, max_intv, R, L, MAXS,
-        (int*)out, (int*)out_n, (bool*)overflow);
+        return launch_pass3<long long>(t, L2, primary, seq_len, qs, qlens, min_seed_len,
+                                       max_intv, R, L, MAXS, out, out_n, overflow, stream);
+    return launch_pass3<int>(t, L2, primary, seq_len, qs, qlens, min_seed_len, max_intv, R, L,
+                             MAXS, out, out_n, overflow, stream);
+}
+
+extern "C" int arachne_seed_pass3_sharded(
+    const void* shards, long long per, const void* L2, long long primary, long long seq_len,
+    int wide, const void* qs, const void* qlens,
+    long long min_seed_len, long long max_intv, int R, int L, int MAXS,
+    void* out, void* out_n, void* overflow, void* stream)
+{
+    const auto s = (const uint4* const*)shards;
+    if (wide)
+        return launch_pass3<long long>(ArachneShardedTable<long long>{s, per}, L2, primary,
+                                       seq_len, qs, qlens, min_seed_len, max_intv, R, L, MAXS,
+                                       out, out_n, overflow, stream);
+    return launch_pass3<int>(ArachneShardedTable<int>{s, (int)per}, L2, primary, seq_len, qs,
+                             qlens, min_seed_len, max_intv, R, L, MAXS, out, out_n, overflow,
+                             stream);
 }

@@ -2,8 +2,11 @@
 
 S1 replaces arachne_tpu/ops/fm_seed.py::_smem_pass_program (passes 1 and
 2) and S3 replaces ``_pass3_program`` (pass 3); both are XLA while-loops in
-the reference, not Pallas.  The plain PyTorch versions and the CPU/CUDA
-dispatch live in ``fm_seed``.
+the reference, not Pallas.  ``smem_pass_sharded_cuda`` and
+``pass3_sharded_cuda`` run them on a table split across cards, where the
+reference runs them under shard_map (arachne_tpu/parallel/mesh.py
+ShardedFMTables.run_pass / run_pass3).  The plain PyTorch versions and the
+CPU/CUDA dispatch live in ``fm_seed``.
 """
 
 from __future__ import annotations
@@ -11,16 +14,17 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .cuda_rank import check_tables
+from .cuda_rank import table_args
 
-def _check_reads(name, fm, qs, per_read):
+
+def _check_reads(name, fm, qs, sharded, per_read):
     dev = qs.device
-    wide = check_tables(name, fm, dev)
+    table, wide = table_args(name, fm, dev, sharded)
     R, L = qs.shape
     build.require(qs, "qs", torch.int8, (R, L), dev)
     for key, t in per_read.items():
         build.require(t, key, torch.int32, (R,), dev)
-    return dev, wide, R, L
+    return dev, table, wide, R, L
 
 
 def _outputs(fm, dev, R, MAXS):
@@ -30,21 +34,21 @@ def _outputs(fm, dev, R, MAXS):
     return out, out_n, overflow
 
 
-def smem_pass_cuda(fm, qs, qlens, pivots0, min_intvs, single_sweep: bool, MAXC: int, MAXS: int):
-    """Launch S1 on CUDA tensors; returns (out (R, MAXS, 5), out_n (R,),
-    overflow (R,) bool), out and out_n in fm's row dtype."""
-    dev, wide, R, L = _check_reads(
-        "smem_pass_cuda", fm, qs, dict(qlens=qlens, pivots0=pivots0, min_intvs=min_intvs)
+def _smem_pass(wrapper, entry, sharded, fm, qs, qlens, pivots0, min_intvs, single_sweep,
+               MAXC, MAXS):
+    name = wrapper.__name__
+    dev, table, wide, R, L = _check_reads(
+        name, fm, qs, sharded, dict(qlens=qlens, pivots0=pivots0, min_intvs=min_intvs)
     )
     if MAXC < 1 or MAXS < 1:
-        raise ValueError(f"smem_pass_cuda: MAXC {MAXC} / MAXS {MAXS} below 1")
+        raise ValueError(f"{name}: MAXC {MAXC} / MAXS {MAXS} below 1")
     out, out_n, overflow = _outputs(fm, dev, R, MAXS)
     # curr, prev (MAXC x 4 each) and the sweep's SMEMs (MAXS x 5) per read
     ws = torch.empty(R * (8 * MAXC + 5 * MAXS), dtype=fm.idt, device=dev)
     if R:
         build.launch(
-            smem_pass_cuda, "arachne_smem_pass", dev,
-            fm.table.data_ptr(), fm.L2.data_ptr(), fm.primary, fm.seq_len, wide,
+            wrapper, entry, dev,
+            *table, fm.L2.data_ptr(), fm.primary, fm.seq_len, wide,
             qs.data_ptr(), qlens.data_ptr(), pivots0.data_ptr(), min_intvs.data_ptr(),
             int(single_sweep), R, L, MAXC, MAXS, ws.data_ptr(), out.data_ptr(),
             out_n.data_ptr(), overflow.data_ptr(),
@@ -52,21 +56,49 @@ def smem_pass_cuda(fm, qs, qlens, pivots0, min_intvs, single_sweep: bool, MAXC: 
     return out, out_n, overflow
 
 
-def pass3_cuda(fm, qs, qlens, min_seed_len: int, max_intv: int, MAXS: int):
-    """Launch S3 on CUDA tensors; returns (out, out_n, overflow) as S1."""
-    dev, wide, R, L = _check_reads("pass3_cuda", fm, qs, dict(qlens=qlens))
+def _pass3(wrapper, entry, sharded, fm, qs, qlens, min_seed_len, max_intv, MAXS):
+    name = wrapper.__name__
+    dev, table, wide, R, L = _check_reads(name, fm, qs, sharded, dict(qlens=qlens))
     if MAXS < 1:
-        raise ValueError(f"pass3_cuda: MAXS {MAXS} < 1")
+        raise ValueError(f"{name}: MAXS {MAXS} < 1")
     out, out_n, overflow = _outputs(fm, dev, R, MAXS)
     if R:
         build.launch(
-            pass3_cuda, "arachne_seed_pass3", dev,
-            fm.table.data_ptr(), fm.L2.data_ptr(), fm.primary, fm.seq_len, wide,
+            wrapper, entry, dev,
+            *table, fm.L2.data_ptr(), fm.primary, fm.seq_len, wide,
             qs.data_ptr(), qlens.data_ptr(), min_seed_len, max_intv, R, L, MAXS,
             out.data_ptr(), out_n.data_ptr(), overflow.data_ptr(),
         )
     return out, out_n, overflow
 
 
+def smem_pass_cuda(fm, qs, qlens, pivots0, min_intvs, single_sweep: bool, MAXC: int, MAXS: int):
+    """Launch S1 on CUDA tensors; returns (out (R, MAXS, 5), out_n (R,),
+    overflow (R,) bool), out and out_n in fm's row dtype."""
+    return _smem_pass(smem_pass_cuda, "arachne_smem_pass", False, fm, qs, qlens, pivots0,
+                      min_intvs, single_sweep, MAXC, MAXS)
+
+
+def smem_pass_sharded_cuda(fm, qs, qlens, pivots0, min_intvs, single_sweep: bool, MAXC: int,
+                           MAXS: int):
+    """S1 on a table split across cards (fm_rank.ShardedFMIndex)."""
+    return _smem_pass(smem_pass_sharded_cuda, "arachne_smem_pass_sharded", True, fm, qs, qlens,
+                      pivots0, min_intvs, single_sweep, MAXC, MAXS)
+
+
+def pass3_cuda(fm, qs, qlens, min_seed_len: int, max_intv: int, MAXS: int):
+    """Launch S3 on CUDA tensors; returns (out, out_n, overflow) as S1."""
+    return _pass3(pass3_cuda, "arachne_seed_pass3", False, fm, qs, qlens, min_seed_len,
+                  max_intv, MAXS)
+
+
+def pass3_sharded_cuda(fm, qs, qlens, min_seed_len: int, max_intv: int, MAXS: int):
+    """S3 on a table split across cards (fm_rank.ShardedFMIndex)."""
+    return _pass3(pass3_sharded_cuda, "arachne_seed_pass3_sharded", True, fm, qs, qlens,
+                  min_seed_len, max_intv, MAXS)
+
+
 smem_pass_cuda.launches = 0
+smem_pass_sharded_cuda.launches = 0
 pass3_cuda.launches = 0
+pass3_sharded_cuda.launches = 0

@@ -40,7 +40,8 @@ from ..runtime.timers import TIMERS
 
 from ..device import resolve_device
 from .batch import batch_align_single
-from .fm_rank import DeviceFMIndex, occ4_device
+from .devicepool import dispatch_devices
+from .fm_rank import DeviceFMIndex, RankTables, ShardedFMIndex, occ4_device
 from .fm_seed import pass3, seed_buffers, smem_pass
 from .params import kernel_params
 from .sw_extend import BatchExtender, extend_batch
@@ -50,12 +51,20 @@ from .sw_local import NEVER, BatchLocalSW, local_sw_full
 _warm_lock = threading.Lock()
 _warmed: set = set()
 
-# the rank tables of each index on each device, uploaded once however many
-# engines (one per worker thread) use them
+# the rank tables of each index on each device, and its sharded tables on
+# each (device list, seeding device), uploaded once however many engines
+# (one per worker thread) use them
 _tables_lock = threading.Lock()
 _tables: "weakref.WeakKeyDictionary[FMIndex, Dict[torch.device, DeviceFMIndex]]" = (
     weakref.WeakKeyDictionary()
 )
+_sharded: "weakref.WeakKeyDictionary[FMIndex, Dict[tuple, ShardedFMIndex]]" = (
+    weakref.WeakKeyDictionary()
+)
+# the placement ``auto`` chose for each index on each device list, decided
+# once: the first engine's upload shrinks the free memory a later one reads
+_placement: "weakref.WeakKeyDictionary[FMIndex, Dict[tuple, str]]" = weakref.WeakKeyDictionary()
+INDEX_MODES = ("auto", "replicated", "sharded")
 
 
 def resolve_device_seeding(device_seeding: Optional[bool] = None) -> bool:
@@ -72,28 +81,82 @@ def resolve_device_seeding(device_seeding: Optional[bool] = None) -> bool:
     return env == "1"
 
 
+def hbm_budget(device: torch.device) -> Optional[int]:
+    """Bytes the rank tables may take on ``device``: ARACHNE_HBM_BUDGET when
+    it is set, else the card's free memory; None (no bound) for a CPU
+    device without the variable.  (The reference's default of 8 GB is a
+    16 GB TPU's figure.)"""
+    env = os.environ.get("ARACHNE_HBM_BUDGET")
+    if env is not None:
+        return int(env)
+    if device.type == "cuda":
+        return torch.cuda.mem_get_info(device)[0]
+    return None
+
+
 def device_tables(idx: FMIndex, device: torch.device) -> DeviceFMIndex:
     """The index's rank tables on ``device``, uploaded on the first call
-    for that (index, device).  Raises if they would not fit the card's free
-    memory: there is no sharded mode, and no silent switch to host
-    seeding."""
+    for that (index, device).  Raises if they exceed ``hbm_budget``: no
+    silent switch to host seeding."""
     device = torch.device(device)
     with _tables_lock:
         per_device = _tables.setdefault(idx, {})
         dfm = per_device.get(device)
         if dfm is None:
-            wide = DeviceFMIndex.is_wide(idx)
-            if device.type == "cuda":
-                need = DeviceFMIndex.table_bytes(idx)
-                free, _ = torch.cuda.mem_get_info(device)
-                if need > free:
-                    raise RuntimeError(
-                        f"device seeding: the index's rank tables need {need} bytes, "
-                        f"{device} has {free} free"
-                    )
-            dfm = DeviceFMIndex.from_host(idx, device, wide)
+            need = DeviceFMIndex.table_bytes(idx)
+            budget = hbm_budget(device)
+            if budget is not None and need > budget:
+                raise RuntimeError(
+                    f"device seeding: the index's rank tables need {need} bytes, over the "
+                    f"budget of {budget} on {device} (with more than one card, --index-mode "
+                    "sharded or auto splits them across the cards)"
+                )
+            dfm = DeviceFMIndex.from_host(idx, device)
             per_device[device] = dfm
         return dfm
+
+
+def sharded_tables(idx: FMIndex, devices, device: torch.device) -> ShardedFMIndex:
+    """The index's rank tables split across ``devices`` and seeded from
+    ``device`` (parallel/mesh.py ShardedFMTables), built on the first call
+    for that (index, devices, device)."""
+    from ..parallel.mesh import ShardedFMTables
+
+    key = (tuple(torch.device(d) for d in devices), torch.device(device))
+    with _tables_lock:
+        per_key = _sharded.setdefault(idx, {})
+        tab = per_key.get(key)
+        if tab is None:
+            tab = ShardedFMTables(idx, key[0], device=key[1])
+            per_key[key] = tab
+        return tab
+
+
+def rank_tables(idx: FMIndex, device: torch.device, mode: str = "auto") -> RankTables:
+    """Where device seeding finds the index's rank tables: the placement
+    rule of arachne_tpu/ops/engine.py:74-110 over the process's devices
+    (devicepool.dispatch_devices of the engine's device, or the pinned
+    list).  ``auto`` shards exactly when there is more than one device and
+    the record table exceeds ``hbm_budget``, decided on the first call for
+    that (index, devices) and kept; ``sharded`` with one device falls back
+    to replicated; tables that fit neither way raise (the reference seeds
+    on the host instead)."""
+    if mode not in INDEX_MODES:
+        raise ValueError(f"index mode {mode!r}: expected one of {INDEX_MODES}")
+    device = torch.device(device)
+    devices = dispatch_devices(device)
+    if mode == "auto":
+        with _tables_lock:
+            chosen = _placement.setdefault(idx, {})
+            key = tuple(devices)
+            if key not in chosen:
+                budget = hbm_budget(device)
+                over = budget is not None and DeviceFMIndex.table_bytes(idx) > budget
+                chosen[key] = "sharded" if len(devices) > 1 and over else "replicated"
+            mode = chosen[key]
+    if mode == "sharded" and len(devices) > 1:
+        return sharded_tables(idx, devices, device)
+    return device_tables(idx, device)
 
 
 def warmup(device: torch.device) -> None:
@@ -138,7 +201,8 @@ class TorchEngine:
     """Batched device engine bound to one index, config and device.
 
     ``device_seeding`` as ``resolve_device_seeding`` reads it; when on,
-    seeding runs on the device against the index's shared device tables."""
+    seeding runs on the device against the index's shared rank tables,
+    placed by ``rank_tables`` under ``cfg.pipeline.index_mode``."""
 
     def __init__(self, idx: FMIndex, cfg: ArachneConfig, device="cuda",
                  device_seeding: Optional[bool] = None):
@@ -151,7 +215,8 @@ class TorchEngine:
         self.local = BatchLocalSW(cfg.mem, self.device)
         self.global_ = BatchGlobal(cfg.mem, self.device)
         self.dfm = (
-            device_tables(idx, self.device) if resolve_device_seeding(device_seeding) else None
+            rank_tables(idx, self.device, cfg.pipeline.index_mode)
+            if resolve_device_seeding(device_seeding) else None
         )
 
     # ------------------------------------------------------------------

@@ -15,8 +15,13 @@ Row coordinates and counts are int32 for indexes under 2^31 rows
 (forward + reverse) and int64 above (the "wide" tables: GRCh38 forward +
 reverse is ~6.2e9 rows).  Everything downstream keys off the table's dtype.
 
+For genomes whose table a device should not hold whole, ``ShardedFMIndex``
+splits the records by block across devices (the port of the reference's
+block-sharded tables, arachne_tpu/parallel/mesh.py ShardedFMTables).
+
 ``occ4_device`` is the wrapper of kernel K5 (csrc/rank.cu): the plain
-version ``occ4_torch`` for CPU tensors, the kernel for CUDA tensors.
+version ``occ4_torch`` for CPU tensors, the kernel for CUDA tensors (its
+sharded entry point for a ShardedFMIndex).
 torch has no popcount and its CPU uint32 has no right shift, so the plain
 version keeps the words' bit patterns as int32 and does the mask and count
 arithmetic in int64 with a SWAR popcount.
@@ -24,26 +29,28 @@ arithmetic in int64 with a SWAR popcount.
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
-from typing import Tuple
+from typing import List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..index.fmindex import FMIndex
 
-from .cuda_rank import RECORD_BYTES, rank_cuda
+from .cuda_rank import RECORD_BYTES, enable_peer_access, rank_cuda, rank_sharded_cuda
 
 _LANE = 0x55555555
 _M32 = 0xFFFFFFFF
 
 
 def _words_view(table: torch.Tensor) -> torch.Tensor:
-    """The (n, 8) int32 words of a record table: after the four int32
-    counts (and before 16 bytes of padding), or after the four int64 ones."""
+    """The (..., 8) int32 words of records (..., 16) int32 or (..., 8)
+    int64: after the four int32 counts (and before 16 bytes of padding), or
+    after the four int64 ones."""
     if table.dtype == torch.int64:
-        return table[:, 4:8].view(torch.int32)
-    return table[:, 4:12]
+        return table[..., 4:8].view(torch.int32)
+    return table[..., 4:12]
 
 
 @dataclass(frozen=True)
@@ -79,6 +86,10 @@ class DeviceFMIndex:
     @property
     def device(self) -> torch.device:
         return self.table.device
+
+    def records(self, block: torch.Tensor) -> torch.Tensor:
+        """The records (..., 16) int32 or (..., 8) int64 of blocks (...,)."""
+        return self.table[block]
 
     @staticmethod
     def is_wide(idx: FMIndex) -> bool:
@@ -128,6 +139,95 @@ class DeviceFMIndex:
                              seq_len=host.seq_len, l_pac=host.l_pac)
 
 
+def split_records(table: torch.Tensor, devices: Sequence) -> Tuple[List[torch.Tensor], int]:
+    """Record table ``table`` in ``len(devices)`` contiguous ranges of
+    ``per = ceil(rows / n)`` records, range s copied onto devices[s], the
+    last padded with zero records (as the reference pads its sharded occ
+    and words, arachne_tpu/parallel/mesh.py:123-129); returns (shards,
+    per).  The counts stay the whole index's, so the one shard that holds a
+    block answers a query alone."""
+    n = len(devices)
+    rows = table.shape[0]
+    per = -(-rows // n)
+    shards = []
+    for s, dev in enumerate(devices):
+        part = table[s * per : (s + 1) * per]
+        shard = torch.zeros((per, table.shape[1]), dtype=table.dtype, device=torch.device(dev))
+        shard[: part.shape[0]].copy_(part)
+        shards.append(shard)
+    return shards, per
+
+
+class ShardedFMIndex:
+    """An index's rank tables split by block across devices: shard s holds
+    records [s * per, (s + 1) * per) of ``dfm``'s table (split_records), a
+    (per, 16) int32 or (per, 8) int64 table on devices[s].  Queries run on
+    one device, the seeding device (``device``, devices[0] by default),
+    which holds L2 and, when it is a card, the shards' addresses that
+    kernels K5, S1 and S3 read records through, each from the card that
+    holds it (over NVLink from another card: peer access is enabled here,
+    and raises where a pair refuses it; a shard is never copied whole onto
+    the seeding card).  It answers what a DeviceFMIndex answers
+    (``device``, ``idt``, ``L2``, ``primary``, ``seq_len``, ``l_pac``,
+    ``records``), so the seeding path takes either."""
+
+    def __init__(self, dfm: DeviceFMIndex, devices: Sequence, device=None):
+        shards, self.per = split_records(dfm.table, devices)
+        self.shards = tuple(shards)
+        self.primary, self.seq_len, self.l_pac = dfm.primary, dfm.seq_len, dfm.l_pac
+        self._seed_from(dfm.L2, devices[0] if device is None else device)
+
+    def _seed_from(self, L2: torch.Tensor, device) -> None:
+        dev = torch.device(device)
+        self.L2 = L2.to(dev)
+        self.pointers = None
+        if dev.type == "cuda":
+            for shard in self.shards:
+                if shard.device.type == "cuda":
+                    enable_peer_access(dev, shard.device)
+            self.pointers = torch.tensor([t.data_ptr() for t in self.shards], dtype=torch.int64,
+                                         device=dev)
+
+    def on(self, device) -> "ShardedFMIndex":
+        """The same shards, seeded from ``device``."""
+        other = copy.copy(self)
+        other._seed_from(self.L2, device)
+        return other
+
+    @property
+    def idt(self) -> torch.dtype:
+        return self.shards[0].dtype
+
+    @property
+    def wide(self) -> bool:
+        return self.idt == torch.int64
+
+    @property
+    def device(self) -> torch.device:
+        return self.L2.device
+
+    def records(self, block: torch.Tensor) -> torch.Tensor:
+        """The records of blocks (...,), each gathered from its shard onto
+        the blocks' device."""
+        dev = block.device
+        s = block // self.per
+        local = block - s * self.per
+        out = torch.empty((*block.shape, self.shards[0].shape[1]), dtype=self.idt, device=dev)
+        for i, shard in enumerate(self.shards):
+            mine = s == i
+            out[mine] = shard[local[mine].to(shard.device)].to(dev)
+        return out
+
+    def occ4(self, ks: np.ndarray) -> np.ndarray:
+        """Host rank API (numpy in and out, as the reference's
+        ShardedFMTables.occ4): K5 on the seeding device."""
+        k = torch.from_numpy(np.asarray(ks).astype(np.int64)).to(self.device, self.idt)
+        return occ4_device(self, k).cpu().numpy().astype(np.int64)
+
+
+RankTables = Union[DeviceFMIndex, ShardedFMIndex]
+
+
 def _popcount32(v: torch.Tensor) -> torch.Tensor:
     """SWAR popcount of 32-bit values held in int64."""
     v = v - ((v >> 1) & 0x55555555)
@@ -136,19 +236,20 @@ def _popcount32(v: torch.Tensor) -> torch.Tensor:
     return ((v * 0x01010101) & _M32) >> 24
 
 
-def occ4_torch(fm: DeviceFMIndex, k: torch.Tensor) -> torch.Tensor:
+def occ4_torch(fm: RankTables, k: torch.Tensor) -> torch.Tensor:
     """Plain version of K5: Occ(k, c) for all four bases; k (...,) on fm's
     device, returns (..., 4) in fm.idt.  The reference's row conventions:
-    k == -1 -> 0, k == seq_len -> L2[c+1] - L2[c] (bwt.c:169-186)."""
+    k == -1 -> 0, k == seq_len -> L2[c+1] - L2[c] (bwt.c:169-186).  A
+    sharded table's records are gathered from their shards."""
     idt = fm.idt
     k = k.to(idt)
     at_end = k == fm.seq_len
     neg = k == -1
     kk = (k - (k >= fm.primary).to(idt)).clamp(0, fm.seq_len - 1).long()
-    block = kk >> 7
-    base = fm.occ[block]                                           # (..., 4)
+    rec = fm.records(kk >> 7)
+    base = rec[..., 0:4]                                           # (..., 4)
     widx = torch.arange(8, dtype=torch.int64, device=k.device)
-    words = fm.words[block].long() & _M32                          # (..., 8)
+    words = _words_view(rec).long() & _M32                         # (..., 8)
     j = kk & 127
     wi = (j >> 4)[..., None]
     p = (j & 15)[..., None]
@@ -171,14 +272,17 @@ def occ4_torch(fm: DeviceFMIndex, k: torch.Tensor) -> torch.Tensor:
     return torch.where(at_end[..., None], end_vals, res)
 
 
-def occ4_device(fm: DeviceFMIndex, k: torch.Tensor) -> torch.Tensor:
-    """K5 wrapper: plain version for CPU tensors, the kernel for CUDA."""
+def occ4_device(fm: RankTables, k: torch.Tensor) -> torch.Tensor:
+    """K5 wrapper: plain version for CPU tensors, the kernel for CUDA (its
+    sharded entry point for a ShardedFMIndex)."""
     if k.device.type == "cpu":
         return occ4_torch(fm, k)
+    if isinstance(fm, ShardedFMIndex):
+        return rank_sharded_cuda(fm, k)
     return rank_cuda(fm, k)
 
 
-def _extend(fm: DeviceFMIndex, x0, x1, x2, is_back: bool, occ4):
+def _extend(fm: RankTables, x0, x1, x2, is_back: bool, occ4):
     xb = x0 if is_back else x1
     tk, tl = occ4(fm, torch.stack([xb - 1, xb - 1 + x2]))
     ok_b = fm.L2[:4] + 1 + tk
@@ -195,7 +299,7 @@ def _extend(fm: DeviceFMIndex, x0, x1, x2, is_back: bool, occ4):
 
 
 def extend_device(
-    fm: DeviceFMIndex,
+    fm: RankTables,
     x0: torch.Tensor,
     x1: torch.Tensor,
     x2: torch.Tensor,
@@ -207,7 +311,7 @@ def extend_device(
 
 
 def extend_torch(
-    fm: DeviceFMIndex,
+    fm: RankTables,
     x0: torch.Tensor,
     x1: torch.Tensor,
     x2: torch.Tensor,

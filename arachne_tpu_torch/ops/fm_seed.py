@@ -31,8 +31,8 @@ from ..align.smem import SMEM
 from ..config import MemOptions
 from ..runtime.timers import TIMERS
 
-from .cuda_seed import pass3_cuda, smem_pass_cuda
-from .fm_rank import DeviceFMIndex, extend_torch
+from .cuda_seed import pass3_cuda, pass3_sharded_cuda, smem_pass_cuda, smem_pass_sharded_cuda
+from .fm_rank import RankTables, ShardedFMIndex, extend_torch
 
 # reads redone at ``seed_buffers`` size after overflowing a caller's
 # smaller buffers (process-wide; worker threads seed concurrently)
@@ -65,7 +65,7 @@ def _put(buf: torch.Tensor, slot: torch.Tensor, do: torch.Tensor, item: torch.Te
     return torch.where(upd[:, :, None], item[:, None, :], buf)
 
 
-def smem_pass_torch(fm: DeviceFMIndex, qs, qlens, pivots0, min_intvs, single_sweep: bool,
+def smem_pass_torch(fm: RankTables, qs, qlens, pivots0, min_intvs, single_sweep: bool,
                     MAXC: int, MAXS: int, stats=None):
     """Plain version of S1 (the reference's _smem_pass_program): qs (R, L)
     int8 codes, qlens / pivots0 / min_intvs (R,).  Returns out (R, MAXS, 5)
@@ -225,7 +225,7 @@ def smem_pass_torch(fm: DeviceFMIndex, qs, qlens, pivots0, min_intvs, single_swe
     return out, out_n, overflow
 
 
-def pass3_torch(fm: DeviceFMIndex, qs, qlens, min_seed_len: int, max_intv: int, MAXS: int,
+def pass3_torch(fm: RankTables, qs, qlens, min_seed_len: int, max_intv: int, MAXS: int,
                 stats=None):
     """Plain version of S3 (the reference's _pass3_program, the
     bwt_seed_strategy1 pivot chains of bwt.c:358-379, in lockstep).  With
@@ -289,19 +289,23 @@ def pass3_torch(fm: DeviceFMIndex, qs, qlens, min_seed_len: int, max_intv: int, 
     return out, out_n, overflow
 
 
-def smem_pass(fm: DeviceFMIndex, qs, qlens, pivots0, min_intvs, single_sweep: bool,
+def smem_pass(fm: RankTables, qs, qlens, pivots0, min_intvs, single_sweep: bool,
               MAXC: int, MAXS: int):
-    """S1 wrapper: plain version for CPU tensors, the kernel for CUDA."""
+    """S1 wrapper: plain version for CPU tensors, the kernel for CUDA (its
+    sharded entry point for a ShardedFMIndex)."""
     if qs.device.type == "cpu":
         return smem_pass_torch(fm, qs, qlens, pivots0, min_intvs, single_sweep, MAXC, MAXS)
-    return smem_pass_cuda(fm, qs, qlens, pivots0, min_intvs, single_sweep, MAXC, MAXS)
+    kernel = smem_pass_sharded_cuda if isinstance(fm, ShardedFMIndex) else smem_pass_cuda
+    return kernel(fm, qs, qlens, pivots0, min_intvs, single_sweep, MAXC, MAXS)
 
 
-def pass3(fm: DeviceFMIndex, qs, qlens, min_seed_len: int, max_intv: int, MAXS: int):
-    """S3 wrapper: plain version for CPU tensors, the kernel for CUDA."""
+def pass3(fm: RankTables, qs, qlens, min_seed_len: int, max_intv: int, MAXS: int):
+    """S3 wrapper: plain version for CPU tensors, the kernel for CUDA (its
+    sharded entry point for a ShardedFMIndex)."""
     if qs.device.type == "cpu":
         return pass3_torch(fm, qs, qlens, min_seed_len, max_intv, MAXS)
-    return pass3_cuda(fm, qs, qlens, min_seed_len, max_intv, MAXS)
+    kernel = pass3_sharded_cuda if isinstance(fm, ShardedFMIndex) else pass3_cuda
+    return kernel(fm, qs, qlens, min_seed_len, max_intv, MAXS)
 
 
 def pad_reads(reads: List[np.ndarray], device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -372,11 +376,12 @@ def pass2_inputs(jobs: List[List[Tuple[int, int]]], qs: torch.Tensor, qlens: tor
 def collect_seeds_device(
     reads: List[np.ndarray],
     opt: MemOptions,
-    dfm: DeviceFMIndex,
+    dfm: RankTables,
     MAXC: Optional[int] = None,
     MAXS: Optional[int] = None,
 ) -> List[List[SMEM]]:
-    """Three-pass seed collection with the sweeps on dfm's device.
+    """Three-pass seed collection with the sweeps on dfm's device (a
+    DeviceFMIndex, or a ShardedFMIndex's seeding device).
 
     Identical per-read output to align.smem.collect_seeds.  MAXC and MAXS
     default to ``seed_buffers`` of the padded width, which no read can

@@ -214,6 +214,18 @@ def assert_uniform_int(value: int, ctx: DistContext, what: str) -> None:
         )
 
 
+def shutdown_distributed(ctx: DistContext) -> None:
+    """Destroy the process group at the end of a run (no-op for
+    single-process runs).  Left to the interpreter's exit, the group's C++
+    threads are destroyed while still joinable and the process aborts
+    ("terminate called without an active exception", exit -6) after its
+    run has succeeded."""
+    if ctx.initialized:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
 def shard_suffix(ctx: DistContext) -> str:
     """Per-host output shard suffix (empty for single-host runs)."""
     if ctx.process_count == 1:

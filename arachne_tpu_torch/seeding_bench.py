@@ -24,6 +24,12 @@ in a table of that size, not in the 50 MB L2), it
     S1 (pass 1, and pass 2 with every job in one launch), S3 and copies;
     the seeds must be identical read for read.
 
+With ``--sharded-cards N`` it does something else: the synthetic table
+split across the first N visible cards (seeded from card 0, each record
+read from the card that holds it) and split into N ranges on card 0 alone,
+each held to the flat kernels and the plain versions and timed beside them
+(``sharded_parity``).
+
 The reference's tunnel slope timing and its while-loop latency section are
 not ported: they answered a question about the TPU.  The result is one
 JSON object, written to ``--out`` and summarised on standard output.
@@ -45,8 +51,8 @@ import torch
 from . import device
 from .config import MemOptions
 from .device import cuda_ms, device_ms, graph_ms, probe, resolve_device
-from .ops.cuda_seed import pass3_cuda, smem_pass_cuda
-from .ops.fm_rank import DeviceFMIndex, occ4_device, occ4_torch
+from .ops.cuda_seed import pass3_cuda, pass3_sharded_cuda, smem_pass_cuda, smem_pass_sharded_cuda
+from .ops.fm_rank import DeviceFMIndex, ShardedFMIndex, occ4_device, occ4_torch
 from .ops.fm_seed import collect_seeds_device
 
 # GRCh38 forward + reverse, ~6.2e9 rows, in blocks of 128
@@ -73,47 +79,105 @@ def synthetic_table(device, n_blocks: int = GRCH38_BLOCKS, seed: int = 0) -> Dev
                          l_pac=seq_len // 2)
 
 
-def wide_seeding_parity(fm: DeviceFMIndex, n_reads: int, seed: int = 17) -> int:
-    """S1 pass 1, S1 pass 2 (one sweep from a random pivot with a random
-    min_intv) and S3 against their plain versions on ``n_reads`` random
-    reads of 150 bases, with the main path's buffers, on a table of at
-    least 2^31 rows (``synthetic_table``): the table is no index of the
-    reads, but the state machines' contract holds on any table, and their
-    intervals' rows reach past 2^31.  Raises unless out, out_n and the
-    overflow flags are equal and some k, l or s written is at least 2^31;
-    returns how many are."""
-    from .ops.fm_seed import pad_reads, pass3, pass3_torch, seed_buffers, smem_pass, smem_pass_torch
+def random_seeding_args(dev, n_reads: int, seed: int):
+    """The arguments after the table of S1 pass 1, S1 pass 2 (one sweep
+    from a random pivot with a random min_intv) and S3 on ``n_reads``
+    random reads of 150 bases, with the main path's buffers, on ``dev``."""
+    from .ops.fm_seed import pad_reads, seed_buffers
 
-    if fm.seq_len < (1 << 31):
-        raise ValueError(f"a table of {fm.seq_len} rows has no row at 2^31")
     opt = MemOptions()
     rng = np.random.default_rng(seed)
-    qs, qlens = pad_reads([rng.integers(0, 4, 150).astype(np.uint8) for _ in range(n_reads)],
-                          fm.device)
+    qs, qlens = pad_reads([rng.integers(0, 4, 150).astype(np.uint8) for _ in range(n_reads)], dev)
     R, L = qs.shape
     MAX = seed_buffers(L)
-    dev = fm.device
     piv = torch.from_numpy(rng.integers(0, 150, R).astype(np.int32)).to(dev)
     minis = torch.from_numpy(rng.integers(1, 20, R).astype(np.int32)).to(dev)
     zeros = torch.zeros(R, dtype=torch.int32, device=dev)
-    passes = {
-        "S1 pass 1": ((fm, qs, qlens, zeros, zeros + 1, False, MAX, MAX),
-                      smem_pass, smem_pass_torch),
-        "S1 pass 2": ((fm, qs, qlens, piv, minis, True, MAX, MAX), smem_pass, smem_pass_torch),
-        "S3": ((fm, qs, qlens, opt.min_seed_len, opt.max_mem_intv, MAX), pass3, pass3_torch),
-    }
+    return {"S1 pass 1": (qs, qlens, zeros, zeros + 1, False, MAX, MAX),
+            "S1 pass 2": (qs, qlens, piv, minis, True, MAX, MAX),
+            "S3": (qs, qlens, opt.min_seed_len, opt.max_mem_intv, MAX)}
+
+
+def _seed_fns(name: str):
+    """(wrapper, plain version) of the seeding pass ``name``."""
+    from .ops.fm_seed import pass3, pass3_torch, smem_pass, smem_pass_torch
+
+    return (pass3, pass3_torch) if name == "S3" else (smem_pass, smem_pass_torch)
+
+
+def _require_same(name: str, got, want, what: str) -> None:
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    for g, w in zip(got, want):
+        if g.dtype != w.dtype or not torch.equal(g.to(w.device), w):
+            raise AssertionError(f"{name} differs from {what}")
+
+
+def wide_seeding_parity(fm: DeviceFMIndex, n_reads: int, seed: int = 17) -> int:
+    """S1 pass 1, S1 pass 2 and S3 (``random_seeding_args``) against their
+    plain versions on a table of at least 2^31 rows (``synthetic_table``):
+    the table is no index of the reads, but the state machines' contract
+    holds on any table, and their intervals' rows reach past 2^31.  Raises
+    unless out, out_n and the overflow flags are equal and some k, l or s
+    written is at least 2^31; returns how many are."""
+    if fm.seq_len < (1 << 31):
+        raise ValueError(f"a table of {fm.seq_len} rows has no row at 2^31")
+    dev = fm.device
     past = 0
-    for name, (args, kernel, plain) in passes.items():
-        got, want = kernel(*args), plain(*args)
-        for g, w in zip(got, want):
-            if g.dtype != w.dtype or not torch.equal(g, w):
-                raise AssertionError(f"{name} differs from its plain version on the wide table")
+    for name, args in random_seeding_args(dev, n_reads, seed).items():
+        kernel, plain = _seed_fns(name)
+        got = kernel(fm, *args)
+        _require_same(name, got, plain(fm, *args), "its plain version on the wide table")
+        MAX = args[-1]
         out, out_n, _ = got
         filled = torch.arange(MAX, device=dev)[None, :] < out_n[:, None]
         past += int((out[:, :, :3][filled] >= (1 << 31)).sum())
     if not past:
         raise AssertionError("no k, l or s written reached 2^31")
     return past
+
+
+def sharded_parity(flat: DeviceFMIndex, devices, n_queries: int = 1 << 20,
+                   n_reads: int = 1024, seed: int = 19) -> dict:
+    """K5, S1 (pass 1, and pass 2 as ``random_seeding_args`` gives it: on
+    random reads over a random table pass 1 leaves no pass-2 job) and S3
+    on ``flat``'s table split across ``devices`` (fm_rank.ShardedFMIndex,
+    seeded from flat's device, which holds the queries) against the flat
+    kernels and the plain versions on the sharded table, on the same
+    inputs: ``parity_rows`` of n_queries (edge rows included) and n_reads
+    random reads.  Raises unless all are equal (integers: tolerance 0).
+    Returns each kernel's time, sharded beside flat: K5 by CUDA events
+    around 20 wrapper calls (``ms``), a CUDA graph of 20 launches and the
+    profiler; S1 and S3 by the profiler and a graph of 10; the plain
+    versions' ms (their one comparison run, by CUDA events)."""
+    from .device import timed_ms
+
+    dev = flat.device
+    sharded = ShardedFMIndex(flat, devices, device=dev)
+    res = {"shards": len(devices), "devices": [str(d) for d in devices], "per": sharded.per}
+    ks = parity_rows(flat, n_queries)
+    got, want = occ4_device(sharded, ks), occ4_device(flat, ks)
+    _require_same("K5 sharded", got, want, "the flat kernel")
+    plain, plain_ms = timed_ms(lambda: occ4_torch(sharded, ks))
+    _require_same("K5 sharded", got, plain, "its plain version")
+    k5 = {"rows": n_queries, "bytes": rank_bytes(flat, n_queries), "plain_ms": plain_ms}
+    for tag, fm in (("", sharded), ("flat_", flat)):
+        fn = (lambda f=fm: occ4_device(f, ks))
+        k5.update({f"{tag}ms": cuda_ms(fn, 20), f"{tag}graph_ms": graph_ms(fn, 20),
+                   f"{tag}device_ms": device_ms(fn, 10)})
+    res["K5"] = k5
+    for name, args in random_seeding_args(dev, n_reads, seed).items():
+        kernel, plain_fn = _seed_fns(name)
+        got = kernel(sharded, *args)
+        _require_same(f"{name} sharded", got, kernel(flat, *args), "the flat kernel")
+        want, plain_ms = timed_ms(lambda: plain_fn(sharded, *args))
+        _require_same(f"{name} sharded", got, want, "its plain version")
+        row = {"reads": n_reads, "plain_ms": plain_ms}
+        for tag, fm in (("", sharded), ("flat_", flat)):
+            fn = (lambda f=fm: kernel(f, *args))
+            row.update({f"{tag}device_ms": device_ms(fn, 10), f"{tag}graph_ms": graph_ms(fn, 10)})
+        res[name] = row
+    return res
 
 
 def parity_rows(fm: DeviceFMIndex, n: int = 2048, seed: int = 1) -> torch.Tensor:
@@ -179,13 +243,19 @@ def sample_reads(fwd: np.ndarray, n: int, length: int = 150, seed: int = 3) -> L
     return reads
 
 
+def _s1_s3_launches():
+    """S1's and S3's launches so far, on flat and sharded tables alike."""
+    return (smem_pass_cuda.launches + smem_pass_sharded_cuda.launches,
+            pass3_cuda.launches + pass3_sharded_cuda.launches)
+
+
 def device_parts_ms(fn) -> Optional[Dict[str, float]]:
     """Device milliseconds of one call of ``fn`` from torch.profiler, split
     into S1 (every pass-1 and pass-2 launch), S3, copies and other device
     work (the fills of fresh buffers); None if no profiler run was whole.
     As in ``device.device_ms``, a warm call comes first in a step of its
     own, and a run whose S1 and S3 records are not as many as the call's
-    launches (``smem_pass_cuda.launches``, ``pass3_cuda.launches``) lost
+    launches (``_s1_s3_launches``) lost
     some and would read low: it is thrown away (counted in
     ``device.lost_profiles``) and made again, up to ``device.PROFILE_TRIES``
     runs in all."""
@@ -197,12 +267,12 @@ def device_parts_ms(fn) -> Optional[Dict[str, float]]:
             fn()
             torch.cuda.synchronize()
             prof.step()
-            s1_before, s3_before = smem_pass_cuda.launches, pass3_cuda.launches
+            s1_before, s3_before = _s1_s3_launches()
             fn()
             torch.cuda.synchronize()
             prof.step()
-        want = {"s1": smem_pass_cuda.launches - s1_before,
-                "s3": pass3_cuda.launches - s3_before}
+        s1_after, s3_after = _s1_s3_launches()
+        want = {"s1": s1_after - s1_before, "s3": s3_after - s3_before}
         parts = {"s1": 0.0, "s3": 0.0, "copies": 0.0, "other": 0.0}
         seen = {"s1": 0, "s3": 0}
         for e in prof.key_averages():
@@ -279,8 +349,13 @@ def main(argv=None) -> dict:
     ap.add_argument("--reads", type=int, default=4096)
     ap.add_argument("--wide-blocks", type=int, default=GRCH38_BLOCKS,
                     help="blocks of the synthetic wide table (0: skip it)")
+    ap.add_argument("--sharded-cards", type=int, default=0,
+                    help="only hold and time K5, S1 and S3 on the synthetic wide table split "
+                    "across the first N visible cards and into N ranges on card 0")
     ap.add_argument("--out", help="write the JSON result here")
     args = ap.parse_args(argv)
+    if args.sharded_cards:
+        return sharded_main(args)
 
     from .index import FMIndex, build_index_files, load_index, unpack_2bit
 
@@ -313,6 +388,31 @@ def main(argv=None) -> dict:
           f"time of one call: S1 {ms_text(s['s1_device_ms'])} ({s['s1_launches']} launches) + "
           f"S3 {ms_text(s['s3_device_ms'])} ({s['s3_launches']}), copies "
           f"{ms_text(s['copy_device_ms'])}, other {ms_text(s['other_device_ms'])}", flush=True)
+    if args.out:
+        with open(args.out, "w") as fh:
+            json.dump(res, fh, indent=1)
+    return res
+
+
+def sharded_main(args) -> dict:
+    n = args.sharded_cards
+    if torch.cuda.device_count() < n:
+        raise SystemExit(f"--sharded-cards {n}: {torch.cuda.device_count()} cards visible")
+    dev = torch.device("cuda", 0)
+    res = {"probe": probe(), "args": vars(args), "runs": {}}
+    big = synthetic_table(dev, args.wide_blocks)
+    cards = [torch.device("cuda", i) for i in range(n)]
+    for name, devices in (("one card", [dev] * n), ("across cards", cards)):
+        r = sharded_parity(big, devices)
+        res["runs"][name] = r
+        k5 = r["K5"]
+        print(f"{name}, {n} shards: K5 at {k5['rows']} rows {k5['graph_ms']:.4f} ms by a graph "
+              f"(flat {k5['flat_graph_ms']:.4f}), device time {k5['device_ms']} (flat "
+              f"{k5['flat_device_ms']}) ms; " + "; ".join(
+                  f"{p} device time {ms_text(r[p]['device_ms'])} (flat "
+                  f"{ms_text(r[p]['flat_device_ms'])}), graph {r[p]['graph_ms']:.4f} (flat "
+                  f"{r[p]['flat_graph_ms']:.4f}) ms" for p in ("S1 pass 1", "S1 pass 2", "S3"))
+              + "; all equal to the flat kernels and the plain versions", flush=True)
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(res, fh, indent=1)

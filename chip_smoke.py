@@ -103,7 +103,27 @@ result line):
      repeat-genome and MAPQ-calibration fixtures through the main path with
      ARACHNE_DEVICE_SEEDING=1, counted from zero: K1-K4, S1 and S3 must
      launch, no read may be redone, and the shards must have the recorded
-     digests.
+     digests;
+  9. the block-sharded index (arachne_tpu_torch/parallel/mesh.py), its
+     shards all on the one card (shards on other cards are read over
+     NVLink; one card cannot show that):
+     9a. the synthetic GRCh38-sized table (6.2e9 rows, int64, 3.1 GB) split
+         into 2 and then 4 shards: K5's sharded entry point on 2^20 rows
+         (edge rows included), S1 (pass 1, and a sweep from random pivots:
+         pass 1 leaves random reads no pass-2 job; 9b runs real ones) and
+         S3 on 1,024 random reads, each equal to the flat kernel on
+         the whole table and to its plain version on the shards (tolerance
+         0), and timed beside the flat kernel;
+     9b. phase 7b's library and 64 Mbp index device-seeded through ``align
+         --index-mode sharded`` with the pool pinned to [card, card] (two
+         shards), counted from zero: K1-K4 and the sharded S1 and S3 must
+         launch and the flat S1 and S3 must not, no read may be redone, and
+         every shard must be byte-identical to 7b's device-seeded run's;
+         its pairs/s beside 7b's.  Then the sharded tables' host occ4
+         (``ShardedFMTables.occ4``, K5's sharded entry point, counted from
+         zero) against the host index on 4096 rows, and S1 and S3 on one
+         superbatch of the library against their plain versions, their
+         device times beside phase 7c's flat ones.
 
 The last three lines of standard output are the kernel table (one JSON
 object, with each kernel's bound and, where one PyTorch call computes the
@@ -519,9 +539,12 @@ MAIN_LAUNCHERS = ("K1", "K2", "K3 score", "K3 z", "K4")
 
 def launchers():
     from arachne_tpu_torch import bench
-    from arachne_tpu_torch.ops.cuda_rank import rank_cuda
+    from arachne_tpu_torch.ops.cuda_rank import rank_cuda, rank_sharded_cuda
+    from arachne_tpu_torch.ops.cuda_seed import pass3_sharded_cuda, smem_pass_sharded_cuda
 
-    return dict(bench.launchers(), K5=rank_cuda)
+    return dict(bench.launchers(), K5=rank_cuda, **{"K5 sharded": rank_sharded_cuda,
+                                                    "S1 sharded": smem_pass_sharded_cuda,
+                                                    "S3 sharded": pass3_sharded_cuda})
 
 
 def reset_counts():
@@ -1098,7 +1121,8 @@ def genome_scale(work, dev, l2_rows, main_rate):
         log(f"   7b {name}: {rate:.1f} pairs/s (phase 3, the 2 Mbp genome, in this call: "
             f"{main_rate:.1f}); " + ", ".join(f"{k} {stages.get(k)}" for k in keys))
     res.update(host_rate=host_rate, device_rate=dev_rate, launches={**host_launches,
-                                                                   **dev_launches})
+                                                                   **dev_launches},
+               lib=lib, device_out=os.path.join(work, "out_device_seeding"))
 
     # 7c: the seeding kernels on this index's tables, which lie in HBM
     fm = device_tables(idx, dev)
@@ -1216,6 +1240,114 @@ def bench_phase(work, dev):
     return lines, rates
 
 
+# 9a: the synthetic GRCh38-sized table split into this many shards, all on
+# the card; 9b: phase 7's index split in two
+SHARD_COUNTS = (2, 4)
+
+
+@phase("9 sharded index")
+def sharded_index(work, dev, scale):
+    import torch
+
+    from arachne_tpu_torch import cli, seeding_bench
+    from arachne_tpu_torch.bench import device_seeding
+    from arachne_tpu_torch.config import MemOptions, PipelineOptions
+    from arachne_tpu_torch.device import cuda_ms, device_ms, graph_ms
+    from arachne_tpu_torch.index import FMIndex, load_index
+    from arachne_tpu_torch.measure import library_reads, quiet, same_shards
+    from arachne_tpu_torch.ops import devicepool, fm_seed
+    from arachne_tpu_torch.ops.fm_seed import pad_reads, pass3, seed_buffers, smem_pass
+    from arachne_tpu_torch.parallel.mesh import ShardedFMTables
+
+    rows = {}
+    # 9a: the sharded kernels on the GRCh38-sized table, against the flat
+    # ones and the plain versions
+    big = seeding_bench.synthetic_table(dev)
+    runs = {}
+    for n in SHARD_COUNTS:
+        r = runs[n] = seeding_bench.sharded_parity(big, [dev] * n)
+        k5 = r["K5"]
+        log(f"   9a, {n} shards of {r['per']} records: K5 at {k5['rows']} rows "
+            f"{k5['graph_ms']:.4f} ms by a graph (flat {k5['flat_graph_ms']:.4f}), "
+            f"{on_card(k5['device_ms'])} (flat {on_card(k5['flat_device_ms'])}), plain "
+            f"{k5['plain_ms']:.1f} ms; " + "; ".join(
+                f"{p} on {r[p]['reads']} reads {on_card(r[p]['device_ms'])} (flat "
+                f"{on_card(r[p]['flat_device_ms'])}), graph {r[p]['graph_ms']:.4f} (flat "
+                f"{r[p]['flat_graph_ms']:.4f}) ms" for p in ("S1 pass 1", "S1 pass 2", "S3"))
+            + "; all equal to the flat kernels and the plain versions (tolerance 0)")
+    del big
+    torch.cuda.empty_cache()
+    k5 = runs[SHARD_COUNTS[0]]["K5"]
+    rows["K5 sharded"] = dict(err=0, ms=k5["ms"], device_ms=k5["device_ms"],
+                              graph_ms=k5["graph_ms"], plain_ms=k5["plain_ms"],
+                              rank_rows=k5["rows"], **bound(nbytes=k5["bytes"]))
+
+    # 9b: phase 7b's library device-seeded over two shards on the card
+    ref, r1, r2, n = scale["lib"]
+    reset_counts()
+    out = os.path.join(work, "out_sharded")
+    with devicepool.pinned([dev, dev]), device_seeding(), quiet(os.path.join(work, "sharded.log")):
+        stats = cli.main(["align", "--engine", "cuda", "--index-mode", "sharded", "--sam", "-t",
+                          "2", out, ref, r1, r2])
+    launches = {k: fn.launches for k, fn in launchers().items()}
+    log(f"   9b launches in the sharded device-seeded path: {launches}")
+    if (not all(launches[k] > 0 for k in MAIN_LAUNCHERS + ("S1 sharded", "S3 sharded"))
+            or launches["S1"] or launches["S3"]):
+        raise AssertionError(f"9b: the path did not seed through the sharded kernels: {launches}")
+    if fm_seed.overflow_redos:
+        raise AssertionError(f"9b: {fm_seed.overflow_redos} reads were redone")
+    rate = stats.reads / stats.elapsed
+    same = same_shards(scale["device_out"], out)
+    log(f"   9b: {stats.reads} pairs at {rate:.1f} pairs/s (7b device-seeded on the whole table "
+        f"in this call: {scale['device_rate']:.1f}); 0 reads redone; shards byte-identical to "
+        f"7b's device-seeded run: {same}")
+    if stats.reads != n or not all(same.values()):
+        raise AssertionError(f"9b: the sharded run's output differs from 7b's: {same}")
+    # K5's sharded entry point through the sharded tables' host occ4
+    idx = FMIndex(*load_index(ref + ".arx.npz"))
+    tab = ShardedFMTables(idx, [dev, dev])
+    ks = seeding_bench.parity_rows(tab, 4096).cpu().numpy().astype(np.int64)
+    reset_counts()
+    got = tab.occ4(ks)
+    k5_launches = launchers()["K5 sharded"].launches
+    if k5_launches <= 0 or not np.array_equal(got, idx.occ4(ks)):
+        raise AssertionError(f"9b: ShardedFMTables.occ4 differs from the host index's "
+                             f"({k5_launches} sharded K5 launches)")
+    log(f"   9b: ShardedFMTables.occ4 on {len(ks)} rows equals idx.occ4 ({k5_launches} "
+        "sharded K5 launch)")
+    # S1 and S3 on one superbatch over the two shards, beside 7c's flat times
+    reads = library_reads(r1, r2, PipelineOptions().reads_per_batch)
+    qs, qlens = pad_reads(reads, dev)
+    MAX = seed_buffers(qs.shape[1])
+    run = seeding_kernels_on(tab, qs, qlens, MemOptions(), MAX, MAX, "two shards on the card")
+    if any(run["flags"]):
+        raise AssertionError("9b: reads overflowed the main path's buffers")
+    s1, s1_pass2, s3 = ((lambda: smem_pass(tab, *run["p1"])), (lambda: smem_pass(tab, *run["p2"])),
+                        (lambda: pass3(tab, *run["p3"])))
+    for name, fn, i in (("S1", s1, 0), ("S1 pass 2", s1_pass2, 1), ("S3", s3, 2)):
+        # the bound at the card's HBM peak, as K5's: 64 MB of records lie
+        # beyond the L2
+        t = dict(device_ms=device_ms(fn, 10), graph_ms=graph_ms(fn, 10),
+                 rank_rows=run["rank_rows"][i],
+                 **bound(nbytes=run["rank_rows"][i] * RANK_ROW_BYTES))
+        flat = scale["seeding_kernels"][name]
+        log(f"   9b {name} sharded: {on_card(t['device_ms'])} (graph {t['graph_ms']:.4f} ms), "
+            f"{t['rank_rows']} occ4 rows, bound {t['bound_ms']:.4f} ms at the HBM peak; flat in 7c "
+            f"{on_card(flat['device_ms'])} (graph {flat['graph_ms']:.4f} ms)")
+        if name == "S1":
+            rows["S1 sharded"] = dict(err=run["err"][0], ms=cuda_ms(s1, 10),
+                                      plain_ms=run["plain_ms"][0], pass2_ms=cuda_ms(s1_pass2, 10),
+                                      pass2_jobs=int(run["p2"][0].shape[0]), **t)
+        elif name == "S1 pass 2":
+            rows["S1 sharded"].update(pass2_device_ms=t["device_ms"])
+        else:
+            rows["S3 sharded"] = dict(err=run["err"][1], ms=cuda_ms(s3, 10),
+                                      plain_ms=run["plain_ms"][2], **t)
+    log_rows({k: rows[k] for k in ("K5 sharded", "S1 sharded", "S3 sharded")})
+    return rows, {"K5 sharded": k5_launches, "S1 sharded": launches["S1 sharded"],
+                  "S3 sharded": launches["S3 sharded"]}
+
+
 KERNELS = [
     ("K1", "extend_cuda", "arachne_tpu_torch/ops/csrc/extend.cu",
      "arachne_tpu/ops/pallas_extend.py:51"),
@@ -1233,6 +1365,15 @@ KERNELS = [
      "arachne_tpu/ops/fm_seed.py:44"),
     ("S3", "pass3_cuda", "arachne_tpu_torch/ops/csrc/seed.cu",
      "arachne_tpu/ops/fm_seed.py:322"),
+    # the same kernels on a table split across cards, where the reference
+    # runs its shard-aware occ4 (psum of each shard's rows) and its seeding
+    # programs under shard_map
+    ("K5 sharded", "rank_sharded_cuda", "arachne_tpu_torch/ops/csrc/rank.cu",
+     "arachne_tpu/ops/fm_rank.py:88"),
+    ("S1 sharded", "smem_pass_sharded_cuda", "arachne_tpu_torch/ops/csrc/seed.cu",
+     "arachne_tpu/parallel/mesh.py:203"),
+    ("S3 sharded", "pass3_sharded_cuda", "arachne_tpu_torch/ops/csrc/seed.cu",
+     "arachne_tpu/parallel/mesh.py:217"),
 ]
 
 
@@ -1270,8 +1411,11 @@ def main() -> int:
         other_routes(work, dev, lib, host_out)
         work7 = os.path.join(work, "scale")
         os.makedirs(work7)
-        genome_scale(work7, dev, seed_rows, main_rate)
+        scale = genome_scale(work7, dev, seed_rows, main_rate)
         bench_phase(work, dev)
+        sharded_rows, sharded_launches = sharded_index(work, dev, scale)
+        rows.update(sharded_rows)
+        launches.update(sharded_launches)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log("phases: " + ", ".join(f"{n} {s:.1f} s" for n, s in PHASES))

@@ -135,10 +135,33 @@ def test_stats_json_keys_and_values_match_reference(fx, tmp_path):
         k: v for k, v in want.items() if k not in timed}
 
 
-def test_index_mode_sharded_refused(fx, tmp_path):
-    with pytest.raises(SystemExit, match="never shards"):
-        port_main(align_args(fx, str(tmp_path / "o"), "oracle", "--index-mode", "sharded"))
-    assert not os.path.exists(tmp_path / "o")
+def test_index_mode_sharded_refused(fx, tmp_path, monkeypatch):
+    """``--index-mode sharded`` is refused only where its tables fit
+    nowhere.  Seeding on the device with one device, the mode falls back
+    to replicated (the reference's rule): over ARACHNE_HBM_BUDGET that is
+    refused (the reference would seed on the host); within it, the run is
+    accepted and its shards are the reference's single-process oracle
+    run's (tests/test_torch_mesh.py shards across two devices)."""
+    from arachne_tpu_torch.ops import engine as engine_mod
+
+    monkeypatch.setenv("ARACHNE_DEVICE_SEEDING", "1")
+    monkeypatch.setenv("ARACHNE_HBM_BUDGET", "1")
+    with pytest.raises(RuntimeError, match="over the budget"):
+        port_main(align_args(fx, str(tmp_path / "refused"), "torch-cpu", "--index-mode",
+                             "sharded"))
+    monkeypatch.delenv("ARACHNE_HBM_BUDGET")
+    placed = []
+    real = engine_mod.rank_tables
+    monkeypatch.setattr(engine_mod, "rank_tables",
+                        lambda *a, **k: placed.append(a[2:]) or real(*a, **k))
+    out = str(tmp_path / "o")
+    port_main(align_args(fx, out, "torch-cpu", "--index-mode", "sharded"))
+    assert placed and set(placed) == {("sharded",)}
+    names = sorted(os.listdir(fx["single"]))
+    assert sorted(os.listdir(out)) == names
+    for fn in names:
+        assert filecmp.cmp(os.path.join(fx["single"], fn), os.path.join(out, fn),
+                           shallow=False), fn
 
 
 def _fastq_text(path):

@@ -10,6 +10,8 @@ Integer outputs: tolerance 0.  Each launch through a kernel wrapper must
 add exactly one to that kernel's launch count.
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -507,6 +509,179 @@ def test_rank_kernel_on_an_index_beyond_the_l2(dev, tmp_path):
     assert rank_cuda.launches == before + 1
     assert torch.equal(got, occ4_torch(fm, ks))
     assert np.array_equal(got.cpu().numpy(), idx.occ4(ks.cpu().numpy().astype(np.int64)))
+
+
+def beyond_l2_table(dev, wide):
+    """Random words and counts over 2^20 blocks (64 MB: beyond the 50 MB
+    L2, where K5 takes a group of lanes per query)."""
+    from arachne_tpu_torch.ops.fm_rank import DeviceFMIndex
+    from arachne_tpu_torch.seeding_bench import synthetic_table
+
+    n_blocks = 1 << 20
+    if wide:
+        return synthetic_table(dev, n_blocks)
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    return DeviceFMIndex.from_planar(
+        torch.randint(0, n_blocks * 128, (n_blocks + 1, 4), dtype=torch.int32, device=dev,
+                      generator=g),
+        torch.randint(-(1 << 31), 1 << 31, (n_blocks * 8,), dtype=torch.int32, device=dev,
+                      generator=g),
+        torch.tensor([0, 1 << 25, 1 << 26, 3 << 25, 1 << 27], dtype=torch.int32, device=dev),
+        n_blocks * 128 // 3, n_blocks * 128, n_blocks * 64)
+
+
+def sharded_cases(dev, fm):
+    """fm's table split into 2 and 3 shards, all on ``dev`` ([card, card],
+    [card, card, card]: how one card runs the mode), and across
+    every visible card when there are several (ranges on other cards read
+    over NVLink)."""
+    from arachne_tpu_torch.ops.fm_rank import ShardedFMIndex
+
+    cases = [ShardedFMIndex(fm, [dev] * n) for n in (2, 3)]
+    if torch.cuda.device_count() > 1:
+        cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        cases.append(ShardedFMIndex(fm, cards, device=dev))
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+def test_sharded_rank_kernel_matches_flat_and_plain(dev, seeding_genome, wide):
+    """K5's sharded entry point (four lanes a query beyond the L2, one
+    thread within) against the flat kernel and the plain versions on both
+    tables, and the flat kernel's output against the host index's occ4:
+    the flat instantiation is unchanged by the templated record access."""
+    from arachne_tpu_torch.ops.cuda_rank import rank_cuda, rank_sharded_cuda
+    from arachne_tpu_torch.ops.fm_rank import DeviceFMIndex, occ4_device, occ4_torch
+    from arachne_tpu_torch.seeding_bench import parity_rows
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    idx, _ = seeding_genome
+    for fm in (DeviceFMIndex.from_host(idx, dev, wide=wide), beyond_l2_table(dev, wide)):
+        ks = parity_rows(fm, 4096)
+        before = rank_cuda.launches
+        flat = occ4_device(fm, ks)
+        assert rank_cuda.launches == before + 1
+        assert torch.equal(flat, occ4_torch(fm, ks))
+        if fm.seq_len == idx.seq_len:
+            assert np.array_equal(flat.cpu().numpy(), idx.occ4(ks.cpu().numpy().astype(np.int64)))
+        for sharded in sharded_cases(dev, fm):
+            for n in (4096, 4089, 1):
+                before = rank_cuda.launches, rank_sharded_cuda.launches
+                got = occ4_device(sharded, ks[:n])
+                assert (rank_cuda.launches, rank_sharded_cuda.launches) == (before[0],
+                                                                            before[1] + 1)
+                assert got.dtype == flat.dtype and torch.equal(got, flat[:n])
+            assert torch.equal(occ4_torch(sharded, ks), flat)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+def test_sharded_seed_kernels_match_flat_and_plain(dev, seeding_genome, wide):
+    """S1 (pass 1, then every pass-2 job in one launch) and S3 through the
+    sharded entry points against the flat kernels and the plain versions
+    on the sharded table, with the main path's buffers and with ones that
+    overflow."""
+    from arachne_tpu_torch.ops.cuda_seed import (
+        pass3_cuda, pass3_sharded_cuda, smem_pass_cuda, smem_pass_sharded_cuda,
+    )
+    from arachne_tpu_torch.ops.fm_rank import DeviceFMIndex
+    from arachne_tpu_torch.ops.fm_seed import (
+        pad_reads, pass1_seeds, pass2_inputs, pass3, pass3_torch, seed_buffers, smem_pass,
+        smem_pass_torch,
+    )
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    idx, reads = seeding_genome
+    fm = DeviceFMIndex.from_host(idx, dev, wide=wide)
+    counts = (smem_pass_cuda, smem_pass_sharded_cuda, pass3_cuda, pass3_sharded_cuda)
+    for small in (False, True):
+        # the small buffers make reads spin to the step cap: keep L at 64 there
+        qs, qlens = pad_reads([r[:60] if small else r for r in reads[:256]], dev)
+        R, L = qs.shape
+        zeros = torch.zeros(R, dtype=torch.int32, device=dev)
+        MAXC, MAXS = (2, 4) if small else (seed_buffers(L),) * 2
+        p1 = (qs, qlens, zeros, zeros + 1, False, MAXC, MAXS)
+        flat1 = smem_pass(fm, *p1)
+        out1, n1, ovf1 = (t.cpu().numpy() for t in flat1)
+        _, jobs = pass1_seeds(out1, n1, ovf1.copy(), R, OPT)
+        _, *job_args = pass2_inputs(jobs, qs, qlens)
+        p2 = (*job_args, True, MAXC, MAXS)
+        flat2 = smem_pass(fm, *p2)
+        p3 = (qs, qlens, OPT.min_seed_len, OPT.max_mem_intv, MAXS)
+        flat3 = pass3(fm, *p3)
+        assert bool(flat1[2].any()) == (MAXC == 2)
+        for sharded in sharded_cases(dev, fm):
+            before = [f.launches for f in counts]
+            got = (smem_pass(sharded, *p1), smem_pass(sharded, *p2), pass3(sharded, *p3))
+            # no pass-2 job, no launch (a read that overflowed pass 1 has none)
+            jobs_launch = int(len(job_args[0]) > 0)
+            assert [f.launches - b for f, b in zip(counts, before)] == [0, 1 + jobs_launch, 0, 1]
+            want = (smem_pass_torch(sharded, *p1), smem_pass_torch(sharded, *p2),
+                    pass3_torch(sharded, *p3))
+            for g, f, w in zip(got, (flat1, flat2, flat3), want):
+                assert all(torch.equal(a, b) for a, b in zip(g, f))
+                assert all(torch.equal(a, b) for a, b in zip(g, w))
+
+
+@pytest.mark.cuda
+def test_sharded_collect_seeds_matches_native(dev, seeding_genome):
+    """collect_seeds_device over a table sharded on [card, card]: the host
+    collector's seeds, no read redone."""
+    from arachne_tpu_torch.align.smem_native import collect_seeds_native, smem_available
+    from arachne_tpu_torch.ops import fm_seed
+    from arachne_tpu_torch.parallel.mesh import ShardedFMTables
+
+    if not smem_available():
+        pytest.skip("the native host collector did not load")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    idx, reads = seeding_genome
+    tab = ShardedFMTables(idx, [dev, dev])
+    before = fm_seed.overflow_redos
+    assert fm_seed.collect_seeds_device(reads, OPT, tab) == collect_seeds_native(idx, reads, OPT)
+    assert fm_seed.overflow_redos == before
+    ks = np.arange(-1, idx.seq_len + 1, 7, dtype=np.int64)
+    np.testing.assert_array_equal(tab.occ4(ks), idx.occ4(ks))
+
+
+@pytest.mark.cuda
+def test_sharded_launchers_refuse_tables_they_cannot_read(dev, seeding_genome):
+    """A shard on the CPU, a shard misaligned, and a shard on a card with no
+    peer access: refused before any launch."""
+    from arachne_tpu_torch.ops import cuda_rank
+    from arachne_tpu_torch.ops.cuda_rank import rank_sharded_cuda
+    from arachne_tpu_torch.ops.fm_rank import DeviceFMIndex, ShardedFMIndex
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    idx, _ = seeding_genome
+    fm = DeviceFMIndex.from_host(idx, dev)
+    good = ShardedFMIndex(fm, [dev, dev])
+    ks = torch.arange(-1, 100, dtype=torch.int32, device=dev)
+
+    def with_shards(shards):
+        bad = copy.copy(good)
+        bad.shards = shards
+        return bad.on(dev)
+
+    on_cpu = with_shards(good.shards[:1] + (good.shards[1].cpu(),))
+    buf = torch.empty(good.shards[1].numel() + 4, dtype=torch.int32, device=dev)
+    shifted = buf[4:].view(good.shards[1].shape)
+    shifted.copy_(good.shards[1])
+    misaligned = with_shards((good.shards[0], shifted))
+    cases = [(on_cpu, "expected a CUDA device"), (misaligned, "not on 64 bytes")]
+    if torch.cuda.device_count() > 1:
+        other = torch.device("cuda", (dev.index + 1) % torch.cuda.device_count())
+        far = ShardedFMIndex(fm, [dev, other], device=dev)
+        cuda_rank._peers.discard((dev.index, other.index))
+        cases.append((far, "no peer access"))
+    before = rank_sharded_cuda.launches
+    for bad, match in cases:
+        with pytest.raises(ValueError, match=match):
+            rank_sharded_cuda(bad, ks)
+    assert rank_sharded_cuda.launches == before
+    if torch.cuda.device_count() > 1:
+        cuda_rank.enable_peer_access(dev, other)
 
 
 @pytest.mark.cuda

@@ -18,7 +18,8 @@ from arachne_tpu.cli import main as reference_main
 from arachne_tpu_torch.parallel import distributed
 from arachne_tpu_torch.runtime.checkpoint import Checkpoint, CheckpointedStream, Claim
 from torch_cli_util import (
-    all_records, free_port, make_fixture, run_cli, sam_header, sam_records, spawn_pair, totals,
+    DEAD_PEER_TIMEOUT, all_records, free_port, make_fixture, run_cli, sam_header, sam_records,
+    spawn_pair, totals,
 )
 
 
@@ -127,7 +128,8 @@ def test_one_host_dies_survivor_finishes_then_single_resume(fx, tmp_path):
     out, ckpt = str(tmp_path / "out"), str(tmp_path / "survivor.ckpt")
 
     def env_for(pid):
-        return {"ARACHNE_CHECKPOINT_EVERY": 1, **({"ARACHNE_CRASH_AFTER_SETS": 2} if pid else {})}
+        return {"ARACHNE_CHECKPOINT_EVERY": 1, "ARACHNE_COLLECTIVE_TIMEOUT": DEAD_PEER_TIMEOUT,
+                **({"ARACHNE_CRASH_AFTER_SETS": 2} if pid else {})}
 
     (rc0, log0), (rc1, log1) = spawn_pair(
         fleet(fx, out, free_port(), "oracle", "--checkpoint", ckpt), extra_env_for=env_for)

@@ -205,8 +205,9 @@ def test_engines_share_one_table_upload(genome, monkeypatch):
 
 
 def test_device_seeding_raises_when_the_tables_do_not_fit(genome, monkeypatch):
-    """No sharded mode and no silent switch to host seeding: a card
-    without room for the tables refuses device seeding."""
+    """No silent switch to host seeding: a card without room for the
+    replicated tables refuses device seeding (sharding them takes a second
+    device: tests/test_torch_mesh.py)."""
     from arachne_tpu_torch.ops import engine as engine_mod
 
     idx, _ = genome

@@ -181,6 +181,33 @@ def test_launchers_refuse_cpu_tensors():
     assert [f.launches for f in launchers] == before
 
 
+def test_sharded_launchers_refuse_cpu_tensors():
+    """The sharded entry points of K5, S1 and S3 take CUDA tensors only;
+    their wrappers give CPU tensors to the plain versions instead."""
+    from arachne_tpu_torch.ops.cuda_rank import rank_sharded_cuda
+    from arachne_tpu_torch.ops.cuda_seed import pass3_sharded_cuda, smem_pass_sharded_cuda
+    from arachne_tpu_torch.ops.fm_rank import DeviceFMIndex, ShardedFMIndex, occ4_device
+
+    fm = DeviceFMIndex.from_planar(torch.zeros((2, 4), dtype=torch.int32),
+                                   torch.zeros(8, dtype=torch.int32),
+                                   torch.tensor([0, 128, 128, 128, 128], dtype=torch.int32),
+                                   64, 128, 64)
+    sharded = ShardedFMIndex(fm, ["cpu", "cpu"])
+    assert sharded.pointers is None and len(sharded.shards) == 2 and sharded.per == 1
+    qs = torch.zeros((2, 32), dtype=torch.int8)
+    v = torch.ones(2, dtype=torch.int32)
+    launchers = (rank_sharded_cuda, smem_pass_sharded_cuda, pass3_sharded_cuda)
+    before = [f.launches for f in launchers]
+    with pytest.raises(ValueError, match="expected a CUDA device"):
+        rank_sharded_cuda(sharded, v)
+    with pytest.raises(ValueError, match="expected a CUDA device"):
+        smem_pass_sharded_cuda(sharded, qs, v, v, v, False, 12, 48)
+    with pytest.raises(ValueError, match="expected a CUDA device"):
+        pass3_sharded_cuda(sharded, qs, v, 19, 20, 48)
+    assert [f.launches for f in launchers] == before
+    assert torch.equal(occ4_device(sharded, v), occ4_device(fm, v))
+
+
 def test_block_threads_limit():
     from arachne_tpu_torch.ops.build import block_threads
 

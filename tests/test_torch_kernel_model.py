@@ -314,16 +314,31 @@ def popc(v):
 
 
 class Tabs:
-    """A DeviceFMIndex's record table as numpy: each 64-byte record as 16
-    uint32 (held in int64), and the block's counts and words read from it
-    as rank.cuh reads them (chunk 0, or chunks 0-1 for int64, then two
-    chunks of words)."""
+    """A DeviceFMIndex's record table, or a ShardedFMIndex's shards, as
+    numpy: each 64-byte record as 16 uint32 (held in int64), and the
+    block's counts and words read from it as rank.cuh reads them (chunk 0,
+    or chunks 0-1 for int64, then two chunks of words)."""
 
     def __init__(self, fm):
-        self.rec = fm.table.numpy().view(np.uint32).reshape(-1, 16).astype(np.int64)
+        from arachne_tpu_torch.ops.fm_rank import ShardedFMIndex
+
+        def records(t):
+            return t.numpy().view(np.uint32).reshape(-1, 16).astype(np.int64)
+
+        # the table as ranges of ``per`` records: a flat table is one range
+        if isinstance(fm, ShardedFMIndex):
+            self.ranges, self.per = np.stack([records(t) for t in fm.shards]), fm.per
+        else:
+            self.ranges = records(fm.table)[None]
+            self.per = self.ranges.shape[1]
         self.cc = 2 if fm.idt == torch.int64 else 1   # arachne_count_chunks
         self.L2 = fm.L2.numpy().astype(np.int64)
         self.primary, self.seq_len = int(fm.primary), int(fm.seq_len)
+
+    def record(self, block):
+        """arachne_record: record block % per of range block / per."""
+        s = block // self.per
+        return self.ranges[s, block - s * self.per]
 
     def counts(self, rec):
         """(..., 4) checkpoint counts of records rec (..., 16)."""
@@ -368,7 +383,7 @@ def model_occ4(tab, k):
     loads."""
     k = np.asarray(k, np.int64)
     kk = np.clip(k - (k >= tab.primary), 0, tab.seq_len - 1)
-    rec = tab.rec[kk >> 7]
+    rec = tab.record(kk >> 7)
     j = kk & 127
     v = tab.words(rec) & word_masks(j[..., None], np.arange(8))
     return occ4_finish(tab, k, j, tab.counts(rec), *count_pairs(v))
@@ -385,7 +400,7 @@ def model_rank_group(tab, ks):
     k = np.asarray(ks, np.int64)
     kk = np.clip(k - (k >= tab.primary), 0, tab.seq_len - 1)
     j = kk & 127
-    rec = tab.rec[kk >> 7]
+    rec = tab.record(kk >> 7)
     lane = np.arange(4)
     chunk = np.where((lane < tab.cc + 2)[:, None], rec.reshape(-1, 4, 4), 0)   # (n, lane, 4)
     h = lane - tab.cc
@@ -672,11 +687,13 @@ def seed_reads(fwd, n, seed):
 _PLAIN = {}
 
 
-def seed_case(seed_index, wide, small):
+def seed_case(seed_index, wide, small, shards=1):
     """(Tabs, DeviceFMIndex, qs, qlens, pass-2 pivots, min_intvs) on the
     CPU; ``small`` cuts 12 reads to 30 bases at a width L of 32, for
-    buffers that overflow, whose reads spin to the step cap (16 L + 64)."""
-    from arachne_tpu_torch.ops.fm_rank import DeviceFMIndex
+    buffers that overflow, whose reads spin to the step cap (16 L + 64).
+    With ``shards`` > 1 the Tabs read the table split into that many
+    ranges (ShardedFMIndex), the DeviceFMIndex stays whole."""
+    from arachne_tpu_torch.ops.fm_rank import DeviceFMIndex, ShardedFMIndex
     from arachne_tpu_torch.ops.fm_seed import pad_reads
 
     idx, fwd = seed_index
@@ -689,7 +706,8 @@ def seed_case(seed_index, wide, small):
     rng = np.random.default_rng(28)
     pivots = (rng.integers(0, 1 << 20, len(reads)) % np.maximum(qlens.numpy(), 1)).astype(np.int32)
     minis = rng.integers(1, 4, len(reads)).astype(np.int32)
-    return Tabs(fm), fm, qs, qlens, pivots, minis
+    tab = Tabs(fm if shards == 1 else ShardedFMIndex(fm, ["cpu"] * shards))
+    return tab, fm, qs, qlens, pivots, minis
 
 
 def plain_smem(seed_index, wide, small, single_sweep, MAXC, MAXS):
@@ -706,59 +724,77 @@ def plain_smem(seed_index, wide, small, single_sweep, MAXC, MAXS):
     return _PLAIN[key]
 
 
-@pytest.mark.parametrize("table", ["narrow", "wide", "random words"])
+def model_table(seed_index, table):
+    """(the plain version's DeviceFMIndex, the model's Tabs): the seed
+    index narrow or wide, or 64 blocks of random words and counts; "in n
+    shards" splits the model's table into n ranges (ShardedFMIndex), the
+    last padded."""
+    from arachne_tpu_torch.ops.fm_rank import DeviceFMIndex, ShardedFMIndex
+    from arachne_tpu_torch.seeding_bench import synthetic_table
+
+    kind, _, n = table.partition(" in ")
+    if kind == "random words":
+        fm = synthetic_table("cpu", 64)
+    else:
+        fm = DeviceFMIndex.from_host(seed_index[0], "cpu", wide=kind == "wide")
+    shards = int(n.split()[0]) if n else 1
+    return fm, Tabs(fm if shards == 1 else ShardedFMIndex(fm, ["cpu"] * shards))
+
+
+MODEL_TABLES = ["narrow", "wide", "random words", "narrow in 3 shards", "wide in 2 shards",
+                "random words in 8 shards"]
+
+
+@pytest.mark.parametrize("table", MODEL_TABLES)
 def test_occ4_model_matches_plain_on_every_row(seed_index, table):
     """Every row from -1 to seq_len (so 0, primary - 1, primary, primary +
     1, seq_len - 1 and seq_len among them) of the index, narrow and wide,
-    and of 64 blocks of random words and counts."""
-    from arachne_tpu_torch.ops.fm_rank import DeviceFMIndex, occ4_torch
-    from arachne_tpu_torch.seeding_bench import synthetic_table
+    and of 64 blocks of random words and counts, each also read through a
+    shard table."""
+    from arachne_tpu_torch.ops.fm_rank import occ4_torch
 
-    if table == "random words":
-        fm = synthetic_table("cpu", 64)
-    else:
-        fm = DeviceFMIndex.from_host(seed_index[0], "cpu", wide=table == "wide")
+    fm, tab = model_table(seed_index, table)
     ks = np.arange(-1, fm.seq_len + 1, dtype=np.int64)
     want = occ4_torch(fm, torch.from_numpy(ks).to(fm.idt)).numpy()
-    np.testing.assert_array_equal(model_occ4(Tabs(fm), ks), want)
+    np.testing.assert_array_equal(model_occ4(tab, ks), want)
 
 
-@pytest.mark.parametrize("table", ["narrow", "wide", "random words"])
+@pytest.mark.parametrize("table", MODEL_TABLES)
 def test_rank_group_model_matches_plain_on_every_row(seed_index, table):
     """K5's four lanes a query, on every row from -1 to seq_len of the seed
-    index, narrow and wide, and of 64 blocks of random words and counts."""
-    from arachne_tpu_torch.ops.fm_rank import DeviceFMIndex, occ4_torch
-    from arachne_tpu_torch.seeding_bench import synthetic_table
+    index, narrow and wide, and of 64 blocks of random words and counts,
+    each also read through a shard table."""
+    from arachne_tpu_torch.ops.fm_rank import occ4_torch
 
-    if table == "random words":
-        fm = synthetic_table("cpu", 64)
-    else:
-        fm = DeviceFMIndex.from_host(seed_index[0], "cpu", wide=table == "wide")
+    fm, tab = model_table(seed_index, table)
     ks = np.arange(-1, fm.seq_len + 1, dtype=np.int64)
     want = occ4_torch(fm, torch.from_numpy(ks).to(fm.idt)).numpy()
-    np.testing.assert_array_equal(model_rank_group(Tabs(fm), ks), want)
+    np.testing.assert_array_equal(model_rank_group(tab, ks), want)
 
 
 S1_MODEL_CASES = (
-    [(G, ss, "sized", False) for G in (1, 2, 3, 4, 16) for ss in (False, True)]
-    + [(3, False, "2x4", False), (3, True, "2x4", False), (16, False, "2x4", False)]
-    + [(4, ss, "sized", True) for ss in (False, True)]
+    [(G, ss, "sized", False, 1) for G in (1, 2, 3, 4, 16) for ss in (False, True)]
+    + [(3, False, "2x4", False, 1), (3, True, "2x4", False, 1), (16, False, "2x4", False, 1)]
+    + [(4, ss, "sized", True, 1) for ss in (False, True)]
+    + [(2, ss, "sized", w, n) for ss in (False, True) for w, n in ((False, 3), (True, 2))]
+    + [(2, False, "2x4", False, 3)]
 )
 
 
 @pytest.mark.parametrize(
-    "G,single_sweep,bufs,wide", S1_MODEL_CASES,
+    "G,single_sweep,bufs,wide,shards", S1_MODEL_CASES,
     ids=[f"G{G}-{'pass2' if s else 'pass1'}-{b}-{'wide' if w else 'narrow'}"
-         for G, s, b, w in S1_MODEL_CASES])
-def test_smem_model_matches_plain(seed_index, G, single_sweep, bufs, wide):
+         + (f"-{n}shards" if n > 1 else "") for G, s, b, w, n in S1_MODEL_CASES])
+def test_smem_model_matches_plain(seed_index, G, single_sweep, bufs, wide, shards):
     """S1 with its backward steps in groups of G against smem_pass_torch:
     pass 1 (pivot 0, min_intv 1) and single sweeps from random pivots with
     min_intv 1..3, at seed_buffers(L) and at MAXC 2 / MAXS 4, which
-    overflow and make reads spin to the step cap."""
+    overflow and make reads spin to the step cap; at the kernel's group of
+    2 also with the table read through a shard table."""
     from arachne_tpu_torch.ops.fm_seed import seed_buffers
 
     small = bufs == "2x4"
-    tab, _, qs, qlens, pivots, minis = seed_case(seed_index, wide, small)
+    tab, _, qs, qlens, pivots, minis = seed_case(seed_index, wide, small, shards)
     R, L = qs.shape
     MAXC, MAXS = (2, 4) if small else (seed_buffers(L),) * 2
     piv = pivots if single_sweep else np.zeros(R, np.int32)
@@ -771,12 +807,14 @@ def test_smem_model_matches_plain(seed_index, G, single_sweep, bufs, wide):
     assert bool(want[2].any()) == small and int(want[1].sum()) > 0
 
 
-@pytest.mark.parametrize("wide,MAXS", [(False, None), (True, None), (False, 4)],
-                         ids=["narrow-sized", "wide-sized", "narrow-MAXS4"])
-def test_pass3_model_matches_plain(seed_index, wide, MAXS):
+@pytest.mark.parametrize("wide,MAXS,shards", [(False, None, 1), (True, None, 1), (False, 4, 1),
+                                               (False, None, 3), (True, None, 2)],
+                         ids=["narrow-sized", "wide-sized", "narrow-MAXS4", "narrow-sized-3shards",
+                              "wide-sized-2shards"])
+def test_pass3_model_matches_plain(seed_index, wide, MAXS, shards):
     from arachne_tpu_torch.ops.fm_seed import pass3_torch, seed_buffers
 
-    tab, fm, qs, qlens, _, _ = seed_case(seed_index, wide, False)
+    tab, fm, qs, qlens, _, _ = seed_case(seed_index, wide, False, shards)
     MAXS = MAXS or seed_buffers(qs.shape[1])
     got, _ = model_pass3(tab, qs.numpy(), qlens.numpy(), OPT.min_seed_len, OPT.max_mem_intv, MAXS)
     want = pass3_torch(fm, qs, qlens, OPT.min_seed_len, OPT.max_mem_intv, MAXS)
