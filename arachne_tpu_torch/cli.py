@@ -26,8 +26,12 @@ that ``merge`` folds into the first ones, and ``status CK`` reports each
 process's progress.  ``--coordinator host:port --num-processes P
 --process-id i`` runs one of P processes (torch.distributed, gloo), each
 writing ``.host<i>`` shards; several cards in one process take chunks
-round-robin (ops/devicepool.py, ARACHNE_DEVICE_DP).  The index is never
-sharded: ``--index-mode sharded`` is refused.
+round-robin (ops/devicepool.py, ARACHNE_DEVICE_DP).  ``--index-mode``
+places the FM-index for device seeding: ``replicated`` keeps the whole
+rank table on the seeding card, ``sharded`` splits it by block across the
+process's cards (replicated on one card), and ``auto`` shards exactly when
+there is more than one card and the table exceeds ARACHNE_HBM_BUDGET
+(default: the card's free memory).
 
 The other subcommands call the port's copies of the host library
 functions the reference's CLI calls (that CLI cannot run without JAX).

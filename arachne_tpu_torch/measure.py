@@ -32,8 +32,11 @@ the same bytes when these are equal) and, on the card, its peak device
 memory.
 
 Every run is bracketed by the card's name, power limit, SM clock and power
-draw from nvidia-smi.  The result is one JSON object, written to ``--out``
-and summarised on standard output.
+draw from nvidia-smi.  The result also records, once, the host it ran on
+(``host_facts``): its memory, which decides ``build-mode auto``'s route,
+its cores, the free disk of the working directories and the card.  The
+result is one JSON object, written to ``--out`` and summarised on standard
+output.
 """
 
 from __future__ import annotations
@@ -211,6 +214,30 @@ def align(engine, out, ref, r1, r2, threads):
                          out, ref, r1, r2])
 
 
+def host_facts(paths):
+    """The host a run is on: MemAvailable and MemTotal from /proc/meminfo
+    in bytes (``build-mode auto`` picks the index build's route by
+    MemAvailable, index/build.py), ``os.cpu_count()``, the free bytes of
+    the filesystem that holds each of ``paths`` ({name: directory}), and,
+    only where a card is present, nvidia-smi's name and power limit."""
+    from .device import _first_line
+
+    mem = {}
+    with open("/proc/meminfo") as fh:
+        for line in fh:
+            key, _, rest = line.partition(":")
+            if key in ("MemAvailable", "MemTotal"):
+                mem[key] = int(rest.split()[0]) * 1024
+    return {
+        "mem_available_bytes": mem.get("MemAvailable"),
+        "mem_total_bytes": mem.get("MemTotal"),
+        "cpu_count": os.cpu_count(),
+        "disk_free_bytes": {name: shutil.disk_usage(d).free for name, d in paths.items()},
+        "card": _first_line(["nvidia-smi", "--query-gpu=name,power.limit",
+                             "--format=csv,noheader"]) if torch.cuda.is_available() else None,
+    }
+
+
 def card_state():
     """nvidia-smi's name, power limit, SM clock and power draw, or None."""
     from .device import _first_line
@@ -324,6 +351,11 @@ def main(argv=None):
 
     dev = resolve_device("cuda" if args.engine == "cuda" else "cpu")
     res = {"probe": probe(), "args": vars(args)}
+    dirs = {"cwd": os.getcwd(), "work": tempfile.gettempdir()}
+    if args.reference:
+        dirs["reference"] = os.path.dirname(os.path.abspath(args.reference))
+    res["host"] = host_facts(dirs)
+    print(f"host: {json.dumps(res['host'])}", flush=True)
     work = tempfile.mkdtemp(prefix="measure_")
     try:
         shape = (args.barcodes, args.molecules, args.pairs, args.molecule_len, args.indel_rate)

@@ -1,5 +1,5 @@
 """Drive the port's wide (int64) device rank path on a real index of at
-least 2^31 rows.
+least 2^31 rows, past 2^32 where the index reaches it.
 
     python -m arachne_tpu_torch.scripts.wide_device_check GENOME.fa.arx.npz [--out check.json]
 
@@ -10,11 +10,14 @@ script refuses an index below 2^31 rows: there is nothing wide to check.
 It uploads the tables through ``ops/engine.device_tables`` to the card and
 
   * holds K5 (``occ4_device``) to the host index's ``occ4`` on 2048 rows
-    over the whole range, 2048 rows at or above 2^31 and the edge rows -1,
-    0, seq_len, primary, 2^31 - 1 and 2^31;
+    over the whole range, 2048 rows at or above 2^31, on an index of more
+    than 2^32 rows (GRCh38's size) 2048 more at or above 2^32, and the edge
+    rows -1, 0, seq_len, primary, 2^31 - 1, 2^31, 2^32 - 1 and 2^32 that
+    lie in the index;
   * holds ``collect_seeds_device`` (kernels S1 and S3) to the native host
     collector, read for read, on one superbatch of 8192 reads of 120 bases
-    sampled from the genome with two substitutions each;
+    sampled from the genome with two substitutions each, and counts the
+    seeds whose interval rows lie at or above 2^31 and 2^32;
   * reports the device time of S1 and S3 in that superbatch
     (torch.profiler) and the wide rank queries/s at 2^16 and 2^20 uniform
     rows (CUDA events around a CUDA graph of the launches).
@@ -35,6 +38,8 @@ import numpy as np
 import torch
 
 WIDE_ROWS = 1 << 31
+# rows past 32 bits: an index of GRCh38's size (6.2e9 rows) reaches them
+ROWS_2_32 = 1 << 32
 # read pairs per superbatch (PipelineOptions.reads_per_batch) times two
 SUPERBATCH_READS = 8192
 RATE_BATCHES = (1 << 16, 1 << 20)
@@ -42,14 +47,18 @@ RATE_BATCHES = (1 << 16, 1 << 20)
 
 def rank_rows(seq_len: int, primary: int, n: int = 2048, seed: int = 5) -> np.ndarray:
     """n uniform rows of [0, seq_len), n more from 2^31 up (from seq_len /
-    2 up on an index below 2^31 rows), then the edge rows that are rows of
-    the index: -1, 0, seq_len, primary, 2^31 - 1 and 2^31."""
+    2 up on an index below 2^31 rows), n more from 2^32 up on an index of
+    more than 2^32 rows, then the edge rows that are rows of the index: -1,
+    0, seq_len, primary, 2^31 - 1, 2^31, 2^32 - 1 and 2^32."""
     rng = np.random.default_rng(seed)
-    edges = [k for k in (-1, 0, seq_len, primary, WIDE_ROWS - 1, WIDE_ROWS) if k <= seq_len]
+    edges = [k for k in (-1, 0, seq_len, primary, WIDE_ROWS - 1, WIDE_ROWS, ROWS_2_32 - 1,
+                         ROWS_2_32) if k <= seq_len]
     upper = WIDE_ROWS if seq_len > WIDE_ROWS else seq_len // 2
+    past_2_32 = [rng.integers(ROWS_2_32, seq_len, n)] if seq_len > ROWS_2_32 else []
     return np.concatenate([
         rng.integers(0, seq_len, n),
         rng.integers(upper, seq_len, n),
+        *past_2_32,
         edges,
     ]).astype(np.int64)
 
@@ -96,10 +105,12 @@ def check(idx, dfm, n_reads: int = SUPERBATCH_READS) -> dict:
     bad = [r for r, (a, b) in enumerate(zip(dev_seeds, host_seeds)) if a != b]
     if bad or len(dev_seeds) != len(host_seeds):
         raise AssertionError(f"device seeds differ from the native collector's: reads {bad[:10]}")
-    rows = [m for mems in dev_seeds for m in mems]
+    rows = [max(m.k, m.l) for mems in dev_seeds for m in mems]
     return {"rank_rows": len(ks), "rank_rows_wide": int((ks >= WIDE_ROWS).sum()),
+            "rank_rows_past_2_32": int((ks >= ROWS_2_32).sum()),
             "reads": len(reads), "seeds": len(rows),
-            "seeds_past_2_31": sum(max(m.k, m.l) >= WIDE_ROWS for m in rows),
+            "seeds_past_2_31": sum(r >= WIDE_ROWS for r in rows),
+            "seeds_past_2_32": sum(r >= ROWS_2_32 for r in rows),
             "collect_seeds_device_s": t_dev}
 
 
@@ -155,9 +166,10 @@ def main(argv=None) -> dict:
           f"of int64 records", flush=True)
     res.update(check(idx, dfm))
     print(f"K5 equals the host occ4 on {res['rank_rows']} rows ({res['rank_rows_wide']} at or "
-          f"above 2^31); collect_seeds_device equals the native collector on {res['reads']} "
-          f"reads ({res['seeds']} seeds, {res['seeds_past_2_31']} with rows at or above 2^31) "
-          f"in {res['collect_seeds_device_s']:.2f} s", flush=True)
+          f"above 2^31, {res['rank_rows_past_2_32']} at or above 2^32); collect_seeds_device "
+          f"equals the native collector on {res['reads']} reads ({res['seeds']} seeds, "
+          f"{res['seeds_past_2_31']} with rows at or above 2^31, {res['seeds_past_2_32']} at "
+          f"or above 2^32) in {res['collect_seeds_device_s']:.2f} s", flush=True)
     reads = sample_reads(idx, SUPERBATCH_READS)
     res["superbatch_device_ms"] = device_parts_ms(
         lambda: collect_seeds_device(reads, MemOptions(), dfm))

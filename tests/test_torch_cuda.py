@@ -11,6 +11,10 @@ add exactly one to that kernel's launch count.
 """
 
 import copy
+import os
+import re
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -698,3 +702,43 @@ def test_bench_gcups_line_on_card(dev):
     assert line["value"] > 0 and d["batch_ms"] > 0 and line["vs_baseline"] > 1
     assert torch.cuda.get_device_name(dev) in d["device"]
     assert extend_cuda.launches > before
+
+
+def compute_sanitizer() -> str:
+    """The toolkit's compute-sanitizer, beside the nvcc that builds the kernels."""
+    from arachne_tpu_torch.device import nvcc_path
+
+    nvcc = nvcc_path()
+    path = os.path.join(os.path.dirname(nvcc), "compute-sanitizer") if nvcc else None
+    if path is None or not os.path.exists(path):
+        pytest.fail(f"compute-sanitizer not found beside nvcc ({nvcc})")
+    return path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tool", ["memcheck", "racecheck", "synccheck"])
+def test_kernels_under_compute_sanitizer(dev, tool):
+    """One small launch of every hand-written kernel (tests/torch_sanitize_util.py)
+    in a subprocess under compute-sanitizer: memcheck on all of them,
+    racecheck and synccheck on those that use shared memory.  The torch
+    allocator's cache is off, so that every tensor is an allocation of its
+    own whose bounds memcheck sees.  Any report, or a tool that does not
+    start, fails the test with the tool's own words."""
+    import torch_sanitize_util as su
+    from arachne_tpu_torch.ops.build import get_lib
+
+    get_lib()   # nvcc outside the tool; the subprocess loads the library built here
+    names = list(su.KERNELS) if tool == "memcheck" else list(su.SHARED_MEMORY)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root, PYTORCH_NO_CUDA_MEMORY_CACHING="1")
+    cmd = [compute_sanitizer(), "--tool", tool, "--error-exitcode", "99",
+           sys.executable, su.__file__, *names]
+    p = subprocess.run(cmd, env=env, cwd=root, capture_output=True, text=True, timeout=600)
+    # the tool's first lines say why it stopped; a fault's report ends its output
+    out = p.stdout if len(p.stdout) <= 8000 else f"{p.stdout[:3000]}\n...\n{p.stdout[-5000:]}"
+    words = f"exit code {p.returncode}\nstdout:\n{out}\nstderr:\n{p.stderr[-3000:]}"
+    assert p.returncode == 0, words
+    assert all(f"launched {name}" in p.stdout for name in names), words
+    # the tool's own summary: it ran and instrumented the launches
+    assert re.search(r"(ERROR SUMMARY: 0 errors|RACECHECK SUMMARY: 0 hazards)",
+                     p.stdout + p.stderr), words

@@ -38,3 +38,35 @@ def test_trial_and_compare_on_cpu(tmp_path):
 def test_profile_needs_the_card():
     with pytest.raises(SystemExit):
         measure.main(["--engine", "torch-cpu", "--profile"] + TINY)
+
+
+def test_host_facts_are_in_the_json(tmp_path):
+    out = tmp_path / "measure.json"
+    measure.main(["--engine", "torch-cpu", "--trials", "1", "--out", str(out)] + TINY)
+    host = json.loads(out.read_text())["host"]
+    assert 0 < host["mem_available_bytes"] <= host["mem_total_bytes"]
+    assert host["cpu_count"] >= 1
+    assert set(host["disk_free_bytes"]) == {"cwd", "work"}
+    assert all(v > 0 for v in host["disk_free_bytes"].values())
+    assert host["card"] is None                             # no card here
+
+
+@pytest.mark.parametrize("card", [False, True], ids=["no-card", "card"])
+def test_host_facts_read_nvidia_smi_only_with_a_card(tmp_path, monkeypatch, card):
+    from arachne_tpu_torch import device
+
+    calls = []
+
+    def smi(cmd):
+        calls.append(cmd)
+        return "NVIDIA H100 80GB HBM3, 700.00 W"
+
+    monkeypatch.setattr(device, "_first_line", smi)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: card)
+    host = measure.host_facts({"reference": str(tmp_path)})
+    assert host["disk_free_bytes"]["reference"] > 0
+    if card:
+        assert calls == [["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]]
+        assert host["card"] == "NVIDIA H100 80GB HBM3, 700.00 W"
+    else:
+        assert calls == [] and host["card"] is None

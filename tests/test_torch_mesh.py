@@ -247,6 +247,34 @@ def test_placement_rule_matches_the_reference_engine(idx, ref_idx, monkeypatch, 
         assert len(got.shards) == n and got.device == CPU
 
 
+@pytest.mark.parametrize("n", [1, 8], ids=["1dev", "8dev"])
+def test_budget_between_48_and_64_bytes_a_block(idx, ref_idx, monkeypatch, n):
+    """A deliberate difference: the reference counts a narrow index at 48
+    bytes a block, planar occ and words (arachne_tpu/ops/engine.py:81); the
+    port counts the 64-byte records it uploads (DeviceFMIndex.table_bytes).
+    At a budget between the two the reference replicates; the port's auto
+    shards on 8 devices and raises on one."""
+    blocks = -(-idx.seq_len // 128)
+    narrow, records = 48 * blocks, DeviceFMIndex.table_bytes(idx)
+    assert narrow < records
+    monkeypatch.setenv("ARACHNE_HBM_BUDGET", str((narrow + records) // 2))
+    for cache in ("_tables", "_sharded", "_placement"):
+        monkeypatch.setattr(engine_mod, cache, engine_mod.weakref.WeakKeyDictionary())
+    cfg = RefConfig(pipeline=RefPipelineOptions(index_mode="auto"))
+    devs = jax.devices()[:n]
+    monkeypatch.setattr(jax, "devices", lambda *a, **k: devs)
+    with contextlib.redirect_stdout(io.StringIO()):
+        ref = TpuEngine(ref_idx, cfg, device_seeding=True).dfm
+    assert ref is not None and not isinstance(ref, ref_mesh.ShardedFMTables)
+    with devicepool.pinned([CPU] * n):
+        if n == 1:
+            with pytest.raises(RuntimeError, match="over the budget"):
+                engine_mod.rank_tables(idx, CPU, "auto")
+            return
+        got = engine_mod.rank_tables(idx, CPU, "auto")
+    assert isinstance(got, ShardedFMIndex) and len(got.shards) == n
+
+
 def test_auto_placement_is_decided_once(idx, monkeypatch):
     """Under auto, the placement of an index on a device list is decided on
     the first call and kept: once the first engine's upload has shrunk the

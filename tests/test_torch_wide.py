@@ -78,3 +78,21 @@ def test_wide_seeding_parity_refuses_a_narrow_table(scale_index):
     idx, _ = scale_index
     with pytest.raises(ValueError, match="2\\^31"):
         wide_seeding_parity(DeviceFMIndex.from_host(idx, "cpu", wide=True), 4)
+
+
+def test_rank_rows_on_a_grch38_sized_index_reach_past_2_32():
+    seq_len = 6_200_000_000
+    ks = wdc.rank_rows(seq_len, 3_456_789_012)
+    assert (ks >= 1 << 32).sum() >= 2048 + 2
+    assert (ks >= 1 << 31).sum() >= 2 * 2048 + 4
+    assert {-1, 0, seq_len, (1 << 31) - 1, 1 << 31, (1 << 32) - 1, 1 << 32} <= set(ks.tolist())
+    assert ks.min() == -1 and ks.max() == seq_len and len(ks) == 3 * 2048 + 8
+
+
+@pytest.mark.parametrize("seq_len", [(1 << 31) + 1, 2_400_000_000, (1 << 32) - 2])
+def test_rank_rows_below_2_32_add_no_third_sample(seq_len):
+    """Between 2^31 and 2^32 rows: the two samples and the edges up to 2^31,
+    no row at or above 2^32 - 1."""
+    ks = wdc.rank_rows(seq_len, 1_234_567_890)
+    assert len(ks) == 2 * 2048 + 6 and ks.max() == seq_len
+    assert not (ks >= (1 << 32) - 1).any()
