@@ -15,7 +15,10 @@ launch routed to one library or the other: K1-K4 on
 2 checks them; S1 (pass 1 and pass 2), S3 and K5 on ``seeding_problems``,
 the device-seeded path's (one superbatch of a 2 Mbp genome's library; K5
 on 2^20 rows of a GRCh38-sized table, "K5 index" on 2^20 rows of the
-library's own index).  One adapter: a parent whose seeding entry points
+library's own index); "K1 int16" is K1 with int16 DP state on K1's
+problems, against the parent's int16 kernel or, where the parent has none
+(``arachne_extend16``), against its int32 K1: the two forms in turns on
+the same inputs.  One adapter: a parent whose seeding entry points
 (K5, S1, S3) take the planar tables, occ and words apart (the layout
 before the 64-byte record table), is called through ``planar_run``, which
 hands it contiguous planar copies of the record table's views, since its
@@ -38,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import os
 import re
@@ -59,6 +63,8 @@ REPS = 10       # launches per turn
 
 # the seeding kernels' cases (``seeding_problems``)
 SEEDING = ("S1 pass 1", "S1 pass 2", "S3", "K5", "K5 index")
+# another form of a kernel, on that kernel's MAIN problems
+FORMS = {"K1 int16": "K1"}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures of the seeding entry points of a parent that takes the planar
@@ -173,7 +179,7 @@ def seeding_problems(dev, genome_bp=2_000_000, n_pairs=4096, wide_blocks=None,
 def case(name: str, dev: torch.device, opt: MemOptions, seeding=None):
     """(wrapper, args, kwargs) of kernel ``name`` on its MAIN problems, or
     for a seeding kernel on ``seeding``, ``seeding_problems``' result."""
-    from .ops.cuda_extend import extend_cuda
+    from .ops.cuda_extend import extend16_cuda, extend_cuda
     from .ops.cuda_global import global_score_cuda, global_z_cuda, traceback_cuda
     from .ops.cuda_local import local_cuda
     from .ops.cuda_rank import rank_cuda
@@ -184,6 +190,9 @@ def case(name: str, dev: torch.device, opt: MemOptions, seeding=None):
     if name in SEEDING:
         fn = {"S3": pass3_cuda, "K5": rank_cuda, "K5 index": rank_cuda}.get(name, smem_pass_cuda)
         return fn, list(seeding[name]), {}
+    if name == "K1 int16":
+        _, args, kw = case("K1", dev, opt)
+        return extend16_cuda, args, dict(kw, max_h0=int(args[5].max()))
     p = kernel_params(opt, dev)
     g = p.gaps()
     seed, B, qmax, tmax = MAIN[name]
@@ -266,7 +275,7 @@ def parser() -> argparse.ArgumentParser:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("parent", help="root of the other checkout")
     ap.add_argument("--kernels", nargs="+", default=["K1", "K2"],
-                    choices=list(MAIN) + list(SEEDING))
+                    choices=list(MAIN) + list(FORMS) + list(SEEDING))
     ap.add_argument("--out", default=None)
     return ap
 
@@ -297,8 +306,15 @@ def main(argv: Optional[List[str]] = None) -> dict:
                    else None)
         for name in a.kernels:
             fn, args, kw = case(name, dev, opt, seeding)
-            shape = MAIN[name][1:] if name in MAIN else list(args[1].shape)
+            shape = (MAIN[FORMS.get(name, name)][1:] if FORMS.get(name, name) in MAIN
+                     else list(args[1].shape))
             run_parent = planar_run(name, parent, args) if planar and name in SEEDING else None
+            if name == "K1 int16" and not hasattr(parent, "arachne_extend16"):
+                from .ops.cuda_extend import extend_cuda
+
+                print("the parent has no int16 K1: its side is its int32 K1", flush=True)
+                run_parent = functools.partial(
+                    extend_cuda, *args, **{k: v for k, v in kw.items() if k != "max_h0"})
             r = dict(shape=list(shape), **compare(
                 name, lambda: fn(*args, **kw), parent, run_parent))
             result["kernels"][name] = r

@@ -69,6 +69,8 @@ _SIGNATURES = {
     # qs, ts, qlens, tlens, ws, h0s, mat, B, qmax, tmax,
     # o_del, e_del, o_ins, e_ins, zdrop, out, stream
     "arachne_extend": [_P] * 7 + [_I] * 8 + [_P, _P],
+    # the same with int16 DP state
+    "arachne_extend16": [_P] * 7 + [_I] * 8 + [_P, _P],
     # qs, ts, qlens, tlens, endscs, minscs, mat, B, qmax, tmax,
     # o_del, e_del, o_ins, e_ins, max_mat, out, stream
     "arachne_local": [_P] * 7 + [_I] * 8 + [_P, _P],

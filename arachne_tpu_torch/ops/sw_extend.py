@@ -11,11 +11,18 @@ dim 1.
 ``extend_batch`` is the kernel wrapper: the plain version for CPU tensors,
 kernel K1 (csrc/extend.cu) for CUDA tensors, nothing else.
 ``BatchExtender`` pads, sorts and chunks submitted problems for it.
+
+``wide_state=False`` is the reference's int16 DP state
+(pallas_extend.py's ``sdt=jnp.int16``): H, E, M, u and the running max in
+int16, every per-problem scalar and the row reductions in int32, the same
+outputs wherever ``int16_state_fits`` proves the range; both wrappers
+raise where it does not.  The batcher keeps int32, as the reference's
+dispatcher does.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -28,25 +35,117 @@ from .devicepool import dispatch_devices, put
 from .params import ParamsByDevice
 
 
+INT16_MAX = (1 << 15) - 1
+# the reference's int16 identity of its prefix-max scan (pallas_extend.py,
+# ``NEG_S``)
+INT16_SCAN_IDENT = -(1 << 13)
+
+
+def int16_max_h0(qmax: int, mat, e_ins: int, *, o_del: int, e_del: int, o_ins: int) -> int:
+    """The largest max(h0) for which ``int16_state_fits`` holds at these
+    widths and scores (-1 where none does).  ``mat`` is the (5, 5) scoring
+    matrix, on the host or on a device (read once per tensor: see
+    ``matrix_range``)."""
+    lo, hi = matrix_range(mat)
+    a = max(hi, 0)
+    lowest = min(min(lo, 0) - max(o_del + e_del, o_ins + e_ins), -2 * e_ins,
+                 INT16_SCAN_IDENT - (qmax - 1) * e_ins)
+    if lowest < -(1 << 15):
+        return -1
+    return INT16_MAX - a * qmax - qmax * e_ins
+
+
+def int16_state_fits(max_h0: int, qmax: int, mat, e_ins: int, *, o_del: int, e_del: int,
+                     o_ins: int) -> bool:
+    """Does every value of the int16 DP state stay within int16, for every
+    h0 in [0, max_h0] (h0 is a seed's score: never negative), qmax query
+    columns, gap penalties >= 0 and the scores of ``mat`` (at most a =
+    max(mat, 0), at least min(mat))?  The bound follows the recurrences as
+    the reference's ``_extend_kernel`` computes them, row i, column j < qmax:
+
+      - H(-1, j) = max(h0 - oe_ins - j*e_ins, 0) <= h0, the column -1 boundary
+        <= h0, M(i, j) = H(i-1, j-1) + s, E <= max(M) - oe_del and F <= max(u)
+        <= max(M), so by induction over j, M(i, j) and H(i, j) <=
+        h0 + a*(j + 1): every H <= max_h0 + a*qmax;
+      - the scan input u(j) + j*e_ins <= H + qmax*e_ins, and so is its prefix
+        max;
+      - the lowest values are M - oe (M >= min(mat, 0), as H >= 0), F - 2*e_ins
+        (the kernel steps F two columns at a time) and the scan's identity
+        ``NEG_S`` = -2^13, less (qmax - 1)*e_ins in ``Fv``.
+
+    So it holds iff
+
+      max_h0 + a*qmax + qmax*e_ins <= 2^15 - 1, and
+      min(min(mat, 0) - max(o_del + e_del, o_ins + e_ins), -2*e_ins,
+          -2^13 - (qmax - 1)*e_ins) >= -2^15.
+
+    At the main path's shapes (``MemOptions``: a = 1, b = 4, gaps 6 + 1,
+    e_ins 1; qmax 192, up to 1024 for reads that long; h0 a seed's score,
+    at most the read's length) the largest max_h0 it accepts is 32,383 at
+    qmax 192 and 30,719 at qmax 1024, against h0 <= 150 for 150 bp reads;
+    the lower side reaches -(2^13 + 1023) = -9,215 of -32,768."""
+    return 0 <= max_h0 <= int16_max_h0(qmax, mat, e_ins, o_del=o_del, e_del=e_del, o_ins=o_ins)
+
+
+def matrix_range(mat) -> tuple:
+    """(min, max) of a scoring matrix: a numpy array, a list or a tensor.  A
+    tensor's pair is kept on it, keyed by its version counter, so that a
+    card's matrix is read (a synchronisation) once, not at every launch."""
+    if not isinstance(mat, torch.Tensor):
+        m = np.asarray(mat)
+        return int(m.min()), int(m.max())
+    kept = getattr(mat, "_arachne_range", None)
+    if kept is None or kept[0] != mat._version:
+        host = mat.detach().cpu()
+        kept = (mat._version, int(host.min()), int(host.max()))
+        mat._arachne_range = kept
+    return kept[1:]
+
+
+def require_int16_state(name, h0s, max_h0: Optional[int], qmax: int, mat, *, o_del, e_del,
+                        o_ins, e_ins) -> None:
+    """Raise ValueError unless ``int16_state_fits`` holds.  ``max_h0`` is the
+    caller's bound on every h0 (and its promise that none is negative);
+    without it the h0s are read, which on a card is a synchronisation."""
+    if max_h0 is None:
+        lo, hi = (int(x) for x in torch.aminmax(h0s)) if h0s.numel() else (0, 0)
+        if lo < 0:
+            raise ValueError(f"{name}: int16 DP state needs h0 >= 0 (min h0 {lo})")
+        max_h0 = hi
+    if not int16_state_fits(max_h0, qmax, mat, e_ins, o_del=o_del, e_del=e_del, o_ins=o_ins):
+        top = int16_max_h0(qmax, mat, e_ins, o_del=o_del, e_del=e_del, o_ins=o_ins)
+        raise ValueError(f"{name}: int16 DP state cannot be proven to fit at max h0 {max_h0}, "
+                         f"qmax {qmax} (largest max h0 it can hold here: {top}); use "
+                         "wide_state=True")
+
+
 def extend_batch_torch(qs, ts, qlens, tlens, ws, h0s, mat, *, o_del, e_del, o_ins, e_ins, zdrop,
-                       stats=None):
+                       stats=None, wide_state=True, max_h0=None):
     """Plain version of K1.  qs (B, qmax) / ts (B, tmax) codes 0..4, the
     rest (B,) int32, mat (5, 5) int32, all on one device.  Returns (6, B)
     int32: maxv, qle, tle, gtle, gscore, max_off.  With a dict ``stats``,
     adds to ``stats["cells"]`` the DP cells these inputs need: the in-band
-    cells of every row a problem reaches before it dies or ends."""
+    cells of every row a problem reaches before it dies or ends.
+    ``wide_state=False`` keeps H, E, M, u and the running max in int16 (the
+    per-problem scalars and the row reductions stay int32), after
+    ``require_int16_state`` with ``max_h0``."""
     dev = qs.device
     B, qmax = qs.shape
     i32 = torch.int32
+    sdt = i32 if wide_state else torch.int16
+    if not wide_state:
+        require_int16_state("extend_batch_torch", h0s, max_h0, qmax, mat, o_del=o_del,
+                            e_del=e_del, o_ins=o_ins, e_ins=e_ins)
     oe_del, oe_ins = o_del + e_del, o_ins + e_ins
     qlens, tlens, ws, h0s = (x.to(dev, i32) for x in (qlens, tlens, ws, h0s))
     mat = mat.to(dev, i32)
     qi = qs.long()
     jidx = torch.arange(qmax, dtype=i32, device=dev)[None, :]
+    jidx_s = jidx.to(sdt)
     valid_q = jidx < qlens[:, None]
 
     # H(-1, j) = max(h0 - oe_ins - j*e_ins, 0) inside the query
-    H = torch.where(valid_q, (h0s[:, None] - oe_ins - jidx * e_ins).clamp_min(0), 0)
+    H = torch.where(valid_q, (h0s[:, None] - oe_ins - jidx * e_ins).clamp_min(0), 0).to(sdt)
     E = torch.zeros_like(H)
     alive = torch.ones(B, dtype=torch.bool, device=dev)
     end = qlens.clone()
@@ -65,7 +164,7 @@ def extend_batch_torch(qs, ts, qlens, tlens, ws, h0s, mat, *, o_del, e_del, o_in
         if i % 32 == 0 and not bool(row_live.any()):
             break
         tcode = torch.where(in_t, ts[:, i].long(), 4)
-        q_row = mat[tcode[:, None], qi]
+        q_row = mat[tcode[:, None], qi].to(sdt)
         # adaptive end (ksw.c:417-418,468-469)
         end_used = torch.minimum(torch.minimum(end, i + ws + 1), qlens)
         in_band = (jidx >= (i - ws)[:, None]) & (jidx < end_used[:, None]) & valid_q
@@ -79,16 +178,18 @@ def extend_batch_torch(qs, ts, qlens, tlens, ws, h0s, mat, *, o_del, e_del, o_in
             bound_prev = torch.where(
                 (i - 1) - ws <= 0, (h0s - (o_del + e_del * i)).clamp_min(0), 0
             )
-        Hdiag = torch.cat([bound_prev[:, None], H[:, :-1]], dim=1)
+        Hdiag = torch.cat([bound_prev[:, None].to(sdt), H[:, :-1]], dim=1)
         M = torch.where(Hdiag != 0, Hdiag + q_row, 0)       # the M-zero quirk
         u = (M - oe_ins).clamp_min(0)
-        run = torch.cummax(u + jidx * e_ins, dim=1).values
+        run = torch.cummax(u + jidx_s * e_ins, dim=1).values
         F = torch.zeros_like(M)
-        F[:, 1:] = (run[:, :-1] - (jidx[:, 1:] - 1) * e_ins).clamp_min(0)
+        F[:, 1:] = (run[:, :-1] - (jidx_s[:, 1:] - 1) * e_ins).clamp_min(0)
         if stats is not None:
             stats["cells"] = stats.get("cells", 0) + int((in_band & row_live[:, None]).sum())
-        Hn = torch.where(in_band, torch.maximum(torch.maximum(M, E), F), 0)
-        En = torch.where(in_band, torch.maximum(E - e_del, (M - oe_del).clamp_min(0)), 0)
+        Hs = torch.where(in_band, torch.maximum(torch.maximum(M, E), F), 0)
+        Es = torch.where(in_band, torch.maximum(E - e_del, (M - oe_del).clamp_min(0)), 0)
+        # the row's reductions in int32
+        Hn, En = Hs.to(i32), Es.to(i32)
 
         m = Hn.max(dim=1).values
         # mj: largest j attaining m (ties -> later j, ksw.c:437)
@@ -127,15 +228,17 @@ def extend_batch_torch(qs, ts, qlens, tlens, ws, h0s, mat, *, o_del, e_del, o_in
         end = torch.where(row_live & ~die, torch.minimum(jstar + 2, qlens), end)
 
         keep = row_live[:, None]
-        H = torch.where(keep, Hn, H)
-        E = torch.where(keep, En, E)
+        H = torch.where(keep, Hs, H)
+        E = torch.where(keep, Es, E)
         alive = alive & ~die
     return torch.stack([maxv, max_j + 1, max_i + 1, max_ie + 1, gscore, max_off])
 
 
 def extend_batch(qs, ts, qlens, tlens, ws, h0s, mat, **kw):
     """K1's wrapper: the plain version for CPU tensors, the CUDA kernel for
-    CUDA tensors (which launches or raises)."""
+    CUDA tensors (which launches or raises).  ``wide_state`` (default True)
+    and ``max_h0`` pass on to either; with ``wide_state=False`` both raise
+    ValueError where ``int16_state_fits`` does not hold."""
     if qs.device.type == "cpu":
         return extend_batch_torch(qs, ts, qlens, tlens, ws, h0s, mat, **kw)
     return extend_cuda(qs, ts, qlens, tlens, ws, h0s, mat, **kw)

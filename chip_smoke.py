@@ -11,7 +11,10 @@ result line):
   1. probe the card, build the CUDA kernels from ops/csrc with nvcc, log
      the L2's fetch granularity and measure the L2 and HBM copy rates;
   2. kernel parity at the main path's shapes: K1 extension (4096 x 192 x
-     512), K2 local SW + score2 (1024 x 192 x 768), K3 global score (1024 x
+     512), and K1 with int16 DP state on the same problems (the
+     reference's wide_state=False; also held to the int32 kernel, its
+     launch counted here, since the main path keeps int32 state), K2 local
+     SW + score2 (1024 x 192 x 768), K3 global score (1024 x
      192 x 320), K3 direction bytes + K4 traceback (128 x 192 x 320, gapped).
      Each kernel must equal its plain PyTorch version on the card exactly
      (integer outputs: tolerance 0) and the scalar ksw oracle
@@ -332,7 +335,7 @@ def kernel_parity(dev):
     from arachne_tpu_torch.align import ksw
     from arachne_tpu_torch.config import MemOptions
     from arachne_tpu_torch.device import cuda_ms, device_ms
-    from arachne_tpu_torch.ops.cuda_extend import extend_cuda
+    from arachne_tpu_torch.ops.cuda_extend import extend16_cuda, extend_cuda
     from arachne_tpu_torch.ops.cuda_global import (
         global_score_cuda, global_z_cuda, traceback_cuda,
     )
@@ -341,7 +344,7 @@ def kernel_parity(dev):
     from arachne_tpu_torch.ops.problems import (
         MAIN, edge_global_problems, extend_problems, global_problems, local_problems, on_device,
     )
-    from arachne_tpu_torch.ops.sw_extend import extend_batch_torch
+    from arachne_tpu_torch.ops.sw_extend import extend_batch, extend_batch_torch, int16_max_h0
     from arachne_tpu_torch.ops.sw_global import (
         decode_traceback_ops, global_batch_torch, traceback_torch,
     )
@@ -380,6 +383,36 @@ def kernel_parity(dev):
         **kernel_times(lambda: extend_cuda(*args, p.mat, **kw)),
         plain_ms=cuda_ms(lambda: extend_batch_torch(*args, p.mat, **kw), 1),
         cells=st["cells"], **bound(ops=st["cells"] * DP_INSTR_PER_CELL),
+    )
+
+    # K1 int16 -----------------------------------------------------------
+    # The same problems with the DP state in int16 (the reference's
+    # wide_state=False), whose range sw_extend.int16_state_fits proves from
+    # the batch's max h0.  The main path keeps int32 state, so the kernel's
+    # launches are this phase's: its count set to 0, then one call of the
+    # wrapper a user calls; the comparisons and timings come after.
+    max_h0 = int(h0s.max())
+    kw16 = dict(kw, wide_state=False, max_h0=max_h0)
+    extend16_cuda.launches = 0
+    got16 = extend_batch(*args, p.mat, **kw16)
+    launches16 = extend16_cuda.launches
+    if launches16 != 1:
+        raise AssertionError(f"K1 int16: {launches16} launches of its kernel, not 1")
+    ref16 = extend_batch_torch(*args, p.mat, **kw16)
+    err16 = require_equal("K1 int16", [(got16, ref16), (got16, got)])
+    got_h = got16.cpu().numpy()
+    bad = [int(b) for b in sample(B) if tuple(got_h[:, b]) != tuple(ksw.extend2(
+        qs_l[b], ts_l[b], mat, opt.o_del, opt.e_del, opt.o_ins, opt.e_ins,
+        int(ws[b]), opt.pen_clip5, opt.zdrop, int(h0s[b])))]
+    require_oracle("K1 int16", bad, SAMPLE)
+    log(f"   K1 int16: equals the plain int16 version and the int32 kernel; max h0 {max_h0}, "
+        f"the range proof's largest {int16_max_h0(qmax, mat, **g)}")
+    # two cells' max-plus step per s16x2 instruction, at the int32 rate
+    rows["K1 int16"] = dict(
+        err=err16, launches=launches16, launches_in="phase 2",
+        **kernel_times(lambda: extend_cuda(*args, p.mat, **kw16)),
+        plain_ms=cuda_ms(lambda: extend_batch_torch(*args, p.mat, **kw16), 1),
+        cells=st["cells"], **bound(ops=st["cells"] * DP_INSTR_PER_CELL / 2),
     )
 
     # K2 -----------------------------------------------------------------
@@ -539,10 +572,12 @@ MAIN_LAUNCHERS = ("K1", "K2", "K3 score", "K3 z", "K4")
 
 def launchers():
     from arachne_tpu_torch import bench
+    from arachne_tpu_torch.ops.cuda_extend import extend16_cuda
     from arachne_tpu_torch.ops.cuda_rank import rank_cuda, rank_sharded_cuda
     from arachne_tpu_torch.ops.cuda_seed import pass3_sharded_cuda, smem_pass_sharded_cuda
 
-    return dict(bench.launchers(), K5=rank_cuda, **{"K5 sharded": rank_sharded_cuda,
+    return dict(bench.launchers(), K5=rank_cuda, **{"K1 int16": extend16_cuda,
+                                                    "K5 sharded": rank_sharded_cuda,
                                                     "S1 sharded": smem_pass_sharded_cuda,
                                                     "S3 sharded": pass3_sharded_cuda})
 
@@ -1351,6 +1386,10 @@ def sharded_index(work, dev, scale):
 KERNELS = [
     ("K1", "extend_cuda", "arachne_tpu_torch/ops/csrc/extend.cu",
      "arachne_tpu/ops/pallas_extend.py:51"),
+    # the same kernel with int16 DP state (sdt=jnp.int16, wide_state=False);
+    # its launches are phase 2's, the main path keeping int32 state
+    ("K1 int16", "extend16_cuda", "arachne_tpu_torch/ops/csrc/extend.cu",
+     "arachne_tpu/ops/pallas_extend.py:326"),
     ("K2", "local_cuda", "arachne_tpu_torch/ops/csrc/local.cu",
      "arachne_tpu/ops/pallas_local.py:27"),
     ("K3 score", "global_score_cuda", "arachne_tpu_torch/ops/csrc/global.cu",
@@ -1416,6 +1455,7 @@ def main() -> int:
         sharded_rows, sharded_launches = sharded_index(work, dev, scale)
         rows.update(sharded_rows)
         launches.update(sharded_launches)
+        launches["K1 int16"] = rows["K1 int16"].pop("launches")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log("phases: " + ", ".join(f"{n} {s:.1f} s" for n, s in PHASES))
@@ -1435,7 +1475,8 @@ def main() -> int:
                  "library_ms": None},
                 **{k: v for k, v in rows[key].items()
                    if k.endswith("rank_qps") or k.startswith("pass2_")
-                   or k in ("cells", "rank_rows", "steps", "device_ms", "graph_ms")},
+                   or k in ("cells", "rank_rows", "steps", "device_ms", "graph_ms",
+                            "launches_in")},
             )
             for key, fn, src, rep in KERNELS
         ]

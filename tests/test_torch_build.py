@@ -181,3 +181,32 @@ def test_device_ms_throws_away_a_profile_that_lost_records(monkeypatch):
     assert device.lost_profiles == 1 and len(calls) == 22   # a warm call a run
     assert device.device_ms(lambda: None, 10) is None
     assert device.lost_profiles == 1 + device.PROFILE_TRIES
+
+
+def test_ab_times_k1_int16_on_k1s_problems():
+    """The "K1 int16" case: K1's MAIN problems through the int16 launcher,
+    with the batch's max h0 as its host bound (no read of the card's h0s
+    at each launch)."""
+    from arachne_tpu_torch.config import MemOptions
+    from arachne_tpu_torch.ops.cuda_extend import extend16_cuda, extend_cuda
+
+    assert ab.parser().parse_args([".", "--kernels", "K1 int16"]).kernels == ["K1 int16"]
+    fn32, args32, kw32 = ab.case("K1", torch.device("cpu"), MemOptions())
+    fn, args, kw = ab.case("K1 int16", torch.device("cpu"), MemOptions())
+    assert fn32 is extend_cuda and fn is extend16_cuda
+    assert all(torch.equal(a, b) for a, b in zip(args, args32, strict=True))
+    assert kw == dict(kw32, max_h0=int(args32[5].max()))
+
+
+def test_chip_smoke_names_the_int16_form_of_k1():
+    """The kernel table's K1 int16 row names its own launcher and the line
+    of the reference that picks the int16 state; its bound counts two
+    cells an instruction."""
+    rows = {key: (fn, src, rep) for key, fn, src, rep in chip_smoke.KERNELS}
+    fn, src, rep = rows["K1 int16"]
+    assert fn == "extend16_cuda" and src == rows["K1"][1]
+    path, line = rep.split(":")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, path)) as fh:
+        assert "jnp.int16" in fh.read().splitlines()[int(line) - 1]
+    assert "K1 int16" in chip_smoke.launchers()

@@ -141,6 +141,77 @@ def test_extend_kernel_matches_plain(dev):
     assert torch.equal(got, extend_batch_torch(*args, mat_on(dev), **kw))
 
 
+def int16_top(qmax, opt=OPT):
+    from arachne_tpu_torch.ops.sw_extend import int16_max_h0
+
+    return int16_max_h0(qmax, opt.scoring_matrix(), opt.e_ins, o_del=opt.o_del,
+                        e_del=opt.e_del, o_ins=opt.o_ins)
+
+
+# other scores for K1 with int16 state: a custom matrix, and free
+# insertions, under which a row's H is flat from its max to the band's end
+# (the row max ties within a pair and across pairs)
+INT16_SCORES = {
+    "default": OPT,
+    "custom matrix": MemOptions(a=2, b=3, o_del=5, e_del=2, o_ins=4, e_ins=1, zdrop=60),
+    "free insertions": MemOptions(o_ins=0, e_ins=0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scores", list(INT16_SCORES))
+@pytest.mark.parametrize("qmax,tmax", [(33, 80), (64, 128), (128, 200), (192, 512), (256, 400),
+                                       (384, 420), (512, 560), (768, 800), (1024, 1100)])
+def test_extend16_kernel_matches_plain_and_int32(dev, qmax, tmax, scores):
+    """K1 with int16 state on every strip width (qmax 33 to 1024: strips of
+    2 to 32 columns), on the edge set of the int32 kernel's test: equal to
+    the plain int16 version and to the int32 kernel, one launch of its own
+    and none of the int32 kernel's for each call."""
+    from arachne_tpu_torch.ops.cuda_extend import extend16_cuda, extend_cuda
+    from arachne_tpu_torch.ops.sw_extend import extend_batch, extend_batch_torch
+
+    opt = INT16_SCORES[scores]
+    qs, ts, ws, h0s = edge_extend_problems(37 + qmax, 70, qmax, tmax)
+    args = on_device(dev, qs, ts, qmax, tmax, ws, h0s)
+    mat = torch.as_tensor(opt.scoring_matrix(), dtype=torch.int32, device=dev)
+    kw = dict(o_del=opt.o_del, e_del=opt.e_del, o_ins=opt.o_ins, e_ins=opt.e_ins,
+              zdrop=opt.zdrop)
+    want32 = extend_cuda(*args, mat, **kw)
+    before = (extend_cuda.launches, extend16_cuda.launches)
+    got = extend_batch(*args, mat, **kw, wide_state=False, max_h0=int(h0s.max()))
+    assert (extend_cuda.launches, extend16_cuda.launches) == (before[0], before[1] + 1)
+    want16 = extend_batch_torch(*args, mat, **kw, wide_state=False)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want16) and torch.equal(got, want32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qmax,tmax", [(64, 128), (1024, 1100)])
+def test_extend16_kernel_at_the_edge_of_its_range(dev, qmax, tmax):
+    """Every h0 at the largest value the range proof accepts: the int16
+    kernel still equals the int32 kernel; one more is refused on the card,
+    and neither kernel launches."""
+    from arachne_tpu_torch.ops.cuda_extend import extend16_cuda, extend_cuda
+    from arachne_tpu_torch.ops.sw_extend import extend_batch
+
+    top = int16_top(qmax)
+    qs, ts, ws, _ = edge_extend_problems(43 + qmax, 40, qmax, tmax)
+    kw = dict(GAPS, zdrop=OPT.zdrop)
+    for h0 in (top, top + 1):
+        args = on_device(dev, qs, ts, qmax, tmax, ws, np.full(len(qs), h0, np.int32))
+        want = extend_cuda(*args, mat_on(dev), **kw)
+        before = (extend_cuda.launches, extend16_cuda.launches)
+        if h0 == top:
+            got = extend_batch(*args, mat_on(dev), **kw, wide_state=False)
+            assert torch.equal(got, want)
+            assert int(want[0].max()) > top
+            continue
+        for max_h0 in (None, h0):
+            with pytest.raises(ValueError, match="int16"):
+                extend_batch(*args, mat_on(dev), **kw, wide_state=False, max_h0=max_h0)
+        assert (extend_cuda.launches, extend16_cuda.launches) == before
+
+
 @pytest.mark.cuda
 def test_local_kernel_matches_plain(dev):
     from arachne_tpu_torch.ops.cuda_local import local_cuda

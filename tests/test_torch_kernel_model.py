@@ -1,6 +1,8 @@
 """Numpy models of the CUDA kernels K3 and K4 (arachne_tpu_torch/ops/csrc/
 global.cu), written from the source step for step, against the plain
-PyTorch versions ``global_batch_torch`` and ``traceback_torch``.
+PyTorch versions ``global_batch_torch`` and ``traceback_torch``; of K1 with
+int16 state (csrc/extend.cu ``extend16_kernel``, its packed s16x2 pairs)
+against ``extend_batch_torch``; and of K5, S1 and S3 (below).
 
 The kernels are compiled and run only on a card.  The models carry their
 arithmetic to the CPU: a warp is an axis of 32 lanes, a lane's registers an
@@ -19,9 +21,11 @@ import torch
 
 from arachne_tpu_torch.config import MemOptions
 from arachne_tpu_torch.ops.problems import (
-    EDGE_GLOBAL_KINDS, edge_global_problems, global_problems,
+    EDGE_GLOBAL_KINDS, edge_global_problems, extend_problems, global_problems,
 )
-from arachne_tpu_torch.ops.sw_extend import lengths, padded_codes
+from arachne_tpu_torch.ops.sw_extend import (
+    extend_batch_torch, int16_max_h0, lengths, padded_codes,
+)
 from arachne_tpu_torch.ops.sw_global import global_batch_torch, traceback_torch
 
 torch.set_num_threads(1)
@@ -288,6 +292,330 @@ def test_model_notices_a_broken_trap(broken):
     kw = {broken: False}
     score, z = model_global(*arrs, want_z=True, **kw)
     assert not (np.array_equal(score, want_score) and np.array_equal(z, want_z))
+
+
+# ----------------------------------------------------------------------
+# K1 with int16 DP state (csrc/extend.cu, extend16_kernel) against
+# extend_batch_torch.  Words are uint32 holding two int16 halves (the even
+# column low, the odd high), as the kernel's registers do; every DPX step,
+# byte permute and mask is the kernel's, on the words, with two's-complement
+# wrap-around per half (counted in WRAPS: the tests require none).
+# ----------------------------------------------------------------------
+
+WRAPS = [0]
+
+
+def wrap16(x):
+    """x (int64) as int16, counting the values that do not fit."""
+    y = ((x + 32768) & 0xFFFF) - 32768
+    WRAPS[0] += int((y != x).sum())
+    return y
+
+
+def halves(v):
+    """(low, high) halves of uint32 words as signed ints."""
+    v = np.asarray(v, np.uint32).astype(np.int64)
+    return ((v & 0xFFFF) ^ 0x8000) - 0x8000, (((v >> 16) & 0xFFFF) ^ 0x8000) - 0x8000
+
+
+def join(lo, hi):
+    return ((np.asarray(lo, np.int64) & 0xFFFF) | ((np.asarray(hi, np.int64) & 0xFFFF) << 16)
+            ).astype(np.uint32)
+
+
+def per_half(fn, *words):
+    parts = [halves(w) for w in words]
+    return join(fn(*(p[0] for p in parts)), fn(*(p[1] for p in parts)))
+
+
+def pack2(x):
+    return join(x, x)
+
+
+def viaddmax(a, b, c, relu=False):
+    """__viaddmax_s16x2[_relu]: max(a + b, c[, 0]) per half."""
+    floor = 0 if relu else -32768
+    return per_half(lambda x, y, z: np.maximum(np.maximum(wrap16(x + y), z), floor), a, b, c)
+
+
+def add2(a, b):
+    return viaddmax(a, b, np.uint32(0x80008000))
+
+
+def vimax3(a, b, c):
+    return per_half(lambda x, y, z: np.maximum(np.maximum(x, y), z), a, b, c)
+
+
+def vimin_relu(a, b):
+    return per_half(lambda x, y: np.maximum(np.minimum(x, y), 0), a, b)
+
+
+def vibmax(a, b):
+    """__vibmax_s16x2: (max(a, b), a >= b in the high half, in the low)."""
+    (alo, ahi), (blo, bhi) = halves(a), halves(b)
+    return join(np.maximum(alo, blo), np.maximum(ahi, bhi)), ahi >= bhi, alo >= blo
+
+
+def perm5432(x, y):
+    """__byte_perm(x, y, 0x5432): x's high half low, y's low half high."""
+    return (x >> np.uint32(16)) | ((y & np.uint32(0xFFFF)) << np.uint32(16))
+
+
+def warp_excl_prefix_max(x, ident):
+    """common.cuh: lane l gets the max of lanes < l, lane 0 ``ident``."""
+    v = shfl_up(x, 1)
+    v[:, 0] = ident
+    lane = np.arange(LANES)[None, :]
+    for d in (1, 2, 4, 8, 16):
+        v = np.where(lane >= d, np.maximum(v, shfl_up(v, d)), v)
+    return v
+
+
+def model_extend16(qs, ts, qlens, tlens, ws, h0s, mat, *, o_del, e_del, o_ins, e_ins, zdrop,
+                   ties_to_odd=True, quirk=True):
+    """extend16_kernel<S>: one warp per problem (axis 0), lane l (axis 1)
+    owning the pairs of columns l*S + 2p, l*S + 2p + 1 (one word of each
+    list below).  A problem stops at its death or its tlen.  The two
+    keyword arguments break the model on purpose, to show that the tests
+    notice: equal halves of the row max going to the even column, and no
+    M-zero mask."""
+    B, qmax = qs.shape
+    S = arachne_strip(qmax)
+    P = S // 2
+    i64 = np.int64
+    lane = np.arange(LANES)[None, :]
+    j0 = lane * S
+    oe_del, oe_ins = o_del + e_del, o_ins + e_ins
+    m5 = np.asarray(mat, i64).reshape(25)
+    x = np.arange(125)
+    pmat = join(m5[5 * (x // 25) + x % 5], m5[5 * (x // 25) + (x // 5) % 5])
+    qlen, tlen = qlens.astype(i64), np.minimum(tlens, ts.shape[1]).astype(i64)
+    w, h0 = ws.astype(i64), h0s.astype(i64)
+    owner = np.where(qlen > 0, (qlen - 1) // S, 0)
+    hc = qlen[:, None] - 1 - j0
+    hp = hc >> 1
+    n_oe_ins, n_oe_del, n_e_del, n_e_ins, n_2e_ins = (
+        pack2(-v) for v in (oe_ins, oe_del, e_del, e_ins, 2 * e_ins))
+
+    def code(j):
+        jj = np.broadcast_to(j, (B, LANES))
+        return np.where(jj < qmax, qs[:, np.minimum(jj[0], qmax - 1)].astype(i64), 4)
+
+    qp, H, E, M, U = [], [], [], [], []
+    for p in range(P):
+        j = j0 + 2 * p
+        qp.append(code(j) + 5 * code(j + 1))
+        col = [np.where(jj < qlen[:, None], np.maximum(h0[:, None] - oe_ins - jj * e_ins, 0), 0)
+               for jj in (j, j + 1)]
+        H.append(join(*col))
+        E.append(np.zeros((B, LANES), np.uint32))
+        M.append(np.zeros((B, LANES), np.uint32))
+        U.append(np.zeros((B, LANES), np.uint32))
+    end = qlen.copy()
+    maxv = h0.copy()
+    max_i, max_j, max_ie, gscore = (np.full(B, -1, i64) for _ in range(4))
+    max_off = np.zeros(B, i64)
+    live = np.ones(B, bool)
+    rows = np.arange(B)
+    for i in range(int(tlen.max()) if B else 0):
+        go = live & (i < tlen)
+        if not go.any():
+            break
+        tcode = np.where(i < tlen, ts[:, i].astype(i64), 4)[:, None]
+        end_used = np.minimum(np.minimum(end, i + w + 1), qlen)
+        lo = np.maximum(i - w, 0)
+        h1_init = np.where(i - w <= 0, np.maximum(h0 - (o_del + e_del * (i + 1)), 0), 0)
+        bound_prev = h0 if i == 0 else np.where(i - 1 - w <= 0,
+                                               np.maximum(h0 - (o_del + e_del * i), 0), 0)
+        Hleft = shfl_up(H[P - 1], 1)
+        Hleft[:, 0] = join(0, bound_prev)
+        active = (j0 < end_used[:, None]) & (j0 + S > lo[:, None])
+
+        # M, u and the strip's G (its even and odd columns' chains)
+        Gp = np.zeros((B, LANES), np.uint32)
+        for p in range(P):
+            Hd = perm5432(Hleft if p == 0 else H[p - 1], H[p])
+            nz = (vimin_relu(Hd, np.uint32(0x00010001)).astype(np.uint64) * 0xFFFF
+                  ).astype(np.uint32) if quirk else np.uint32(0xFFFFFFFF)
+            M[p] = np.where(active, add2(Hd, pmat[25 * tcode + qp[p]]) & nz, M[p])
+            U[p] = np.where(active, viaddmax(M[p], n_oe_ins, np.uint32(0), relu=True), U[p])
+            Gp = viaddmax(Gp, n_2e_ins, U[p])
+        glo, ghi = halves(Gp)
+        tot = np.where(active, np.maximum(glo - e_ins, ghi) + (j0 + S - 1) * e_ins, 0)
+        run_in = warp_excl_prefix_max(tot, 0)
+
+        # H and E, F two columns a step, the lane's reductions
+        F0 = np.where(lane == 0, 0, np.maximum(run_in - (j0 - 1) * e_ins, 0))
+        F = join(F0, np.maximum(F0 - e_ins, halves(U[0])[0]))
+        kb, ke = lo[:, None] - j0, end_used[:, None] - j0
+        run = np.zeros((B, LANES), np.uint32)
+        ilo = np.full((B, LANES), -1, i64)
+        ihi = ilo.copy()
+        Hn, En = [], []
+        for p in range(P):
+            in_band = (np.where((2 * p >= kb) & (2 * p < ke), 0xFFFF, 0)
+                       | np.where((2 * p + 1 >= kb) & (2 * p + 1 < ke), 0xFFFF0000, 0)
+                       ).astype(np.uint32)
+            Hn.append(vimax3(M[p], E[p], F) & in_band)
+            En.append(viaddmax(E[p], n_e_del, add2(M[p], n_oe_del), relu=True) & in_band)
+            if p + 1 < P:
+                F = viaddmax(F, n_2e_ins, viaddmax(U[p], n_e_ins, perm5432(U[p], U[p + 1])))
+            run, ge_hi, ge_lo = vibmax(Hn[p], run)
+            ilo = np.where(ge_lo, p, ilo)
+            ihi = np.where(ge_hi, p, ihi)
+        rl, rh = halves(run)
+        odd = (rh > rl) | ((rh == rl) & (ihi >= ilo) & ties_to_odd)
+        lm = np.where(active, np.where(odd, rh, rl), 0)
+        lj = np.where(active, np.where(odd, j0 + 2 * ihi + 1, j0 + 2 * ilo), -1)
+        last = np.full((B, LANES), -1, i64)
+        last_w = np.zeros((B, LANES), np.uint32)
+        for p in range(P):
+            sw = Hn[p] | perm5432(En[p], En[p + 1] if p + 1 < P else np.uint32(0))
+            last = np.where(sw != 0, p, last)
+            last_w = np.where(sw != 0, sw, last_w)
+        js = np.where(last >= 0, j0 + 2 * last + 1 + (last_w > 0xFFFF),
+                      np.where(En[0] & np.uint32(0xFFFF), j0, -1))
+        js = np.where(active, js, -1)
+        hw = np.zeros((B, LANES), np.uint32)
+        for p in range(P):
+            hw = np.where(hp == p, Hn[p], hw)
+        hl = np.where(active, np.where(hc & 1, hw >> np.uint32(16), hw & np.uint32(0xFFFF)), 0)
+        for p in range(P):
+            keep = go[:, None]
+            H[p] = np.where(keep, np.where(active, Hn[p], 0), H[p]).astype(np.uint32)
+            E[p] = np.where(keep, np.where(active, En[p], 0), E[p]).astype(np.uint32)
+
+        # the warp's reductions and the problem's scalars, as in int32
+        m = lm.max(axis=1)
+        mj = np.where(lm == m[:, None], lj, -1).max(axis=1)
+        js = js.max(axis=1)
+        js = np.where(h1_init != 0, np.maximum(js, 0), js)
+        hl = hl[rows, owner].astype(i64)
+        ends_q = go & (end_used == qlen)
+        max_ie = np.where(ends_q & ~(gscore > hl), i, max_ie)
+        gscore = np.where(ends_q, np.maximum(gscore, hl), gscore)
+        improved = m > maxv
+        di, dj = i - max_i, mj - max_j
+        zdropped = (np.where(di > dj, maxv - m - (di - dj) * e_del > zdrop,
+                             maxv - m - (dj - di) * e_ins > zdrop) if zdrop > 0 else False)
+        die = (m == 0) | (~improved & zdropped)
+        upd = go & improved
+        maxv = np.where(upd, m, maxv)
+        max_i = np.where(upd, i, max_i)
+        max_j = np.where(upd, mj, max_j)
+        max_off = np.where(upd, np.maximum(max_off, np.abs(mj - i)), max_off)
+        end = np.where(go & ~die, np.minimum(js + 2, qlen), end)
+        live &= ~(go & die)
+    return np.stack([maxv, max_j + 1, max_i + 1, max_ie + 1, gscore, max_off])
+
+
+# qmax -> (strip width S, tmax, problems): each of the kernel's strip widths
+EXTEND16_SHAPES = {64: (2, 96, 30), 128: (4, 160, 30), 192: (6, 260, 24), 256: (8, 300, 20),
+                   384: (12, 420, 16), 512: (16, 540, 12), 768: (24, 800, 10),
+                   1024: (32, 1060, 8)}
+
+
+def extend16_problems(qmax):
+    """K1 problems (``extend_problems``) with the edges of the warp-per-problem
+    design: w = 0, h0 = 0, a problem that dies on row 0, tlen = 0, a
+    one-base query, a query as long as qmax, and runs of N in the query,
+    whose equal scores make ties within a pair."""
+    _, tmax, B = EXTEND16_SHAPES[qmax]
+    qs, ts, ws, h0s = extend_problems(70 + qmax, B, qmax, tmax, OPT)
+    rng = np.random.default_rng(qmax)
+    for b in range(B):
+        kind = b % 8
+        if kind == 0:
+            ws[b] = 0
+        elif kind == 1:
+            h0s[b] = 0
+        elif kind == 2:
+            qs[b] = np.zeros(max(len(qs[b]), 1), np.int8)
+            ts[b] = np.ones(len(ts[b]), np.int8)
+            h0s[b] = 1
+        elif kind == 3:
+            ts[b] = ts[b][:0]
+        elif kind == 4:
+            qs[b], ts[b] = qs[b][:1], ts[b][:2]
+        elif kind == 5:
+            ts[b] = rng.integers(0, 4, tmax).astype(np.int8)
+            qs[b] = ts[b][:qmax].copy()
+            ws[b], h0s[b] = 100, 60
+        elif kind == 6 and len(qs[b]) > 12:
+            at = int(rng.integers(0, len(qs[b]) - 10))
+            qs[b] = qs[b].copy()
+            qs[b][at: at + 9] = 4
+    return [padded_codes(qs, qmax), padded_codes(ts, tmax), lengths(qs), lengths(ts), ws, h0s]
+
+
+def plain_extend(arrs, opt=OPT, wide_state=True):
+    t = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrs]
+    mat = torch.as_tensor(opt.scoring_matrix(), dtype=torch.int32)
+    return extend_batch_torch(*t, mat, o_del=opt.o_del, e_del=opt.e_del, o_ins=opt.o_ins,
+                              e_ins=opt.e_ins, zdrop=opt.zdrop, wide_state=wide_state).numpy()
+
+
+def run_model16(arrs, opt=OPT, **kw):
+    """The model's outputs and the number of halves that wrapped."""
+    WRAPS[0] = 0
+    got = model_extend16(*arrs, opt.scoring_matrix(), o_del=opt.o_del, e_del=opt.e_del,
+                         o_ins=opt.o_ins, e_ins=opt.e_ins, zdrop=opt.zdrop, **kw)
+    return got, WRAPS[0]
+
+
+@pytest.mark.parametrize("qmax", list(EXTEND16_SHAPES))
+def test_extend16_model_matches_plain(qmax):
+    """Every strip width S (2, 4, 6, 8, 12, 16, 24, 32), against the int32
+    and the int16 plain versions; no half wraps."""
+    assert arachne_strip(qmax) == EXTEND16_SHAPES[qmax][0]
+    arrs = extend16_problems(qmax)
+    want = plain_extend(arrs)
+    np.testing.assert_array_equal(plain_extend(arrs, wide_state=False), want)
+    got, wraps = run_model16(arrs)
+    np.testing.assert_array_equal(got, want)
+    assert wraps == 0
+
+
+# other scores: a custom matrix (match 2, mismatch -3, gaps 5+2 and 4+1, so
+# that e_ins differs from e_del), and free insertions, under which every
+# row's H is flat from its max to the band's end: the row max ties across
+# pairs and within them
+OTHER_SCORES = {
+    "custom matrix": MemOptions(a=2, b=3, o_del=5, e_del=2, o_ins=4, e_ins=1, zdrop=60),
+    "free insertions": MemOptions(o_ins=0, e_ins=0),
+}
+
+
+@pytest.mark.parametrize("scores", list(OTHER_SCORES))
+def test_extend16_model_with_other_scores(scores):
+    arrs = extend16_problems(192)
+    opt = OTHER_SCORES[scores]
+    got, wraps = run_model16(arrs, opt)
+    np.testing.assert_array_equal(got, plain_extend(arrs, opt))
+    assert wraps == 0
+
+
+def test_extend16_model_at_the_largest_h0_it_accepts():
+    """Every h0 at int16_max_h0, where H and the scan input come within a
+    few units of 2^15 - 1: the model still equals int32 and nothing wraps."""
+    arrs = extend16_problems(64)
+    top = int16_max_h0(64, OPT.scoring_matrix(), OPT.e_ins, o_del=OPT.o_del, e_del=OPT.e_del,
+                       o_ins=OPT.o_ins)
+    arrs[5] = np.full_like(arrs[5], top)
+    got, wraps = run_model16(arrs)
+    np.testing.assert_array_equal(got, plain_extend(arrs))
+    assert wraps == 0 and got[0].max() > 32_600
+
+
+@pytest.mark.parametrize("broken", ["ties_to_odd", "quirk"])
+def test_extend16_model_notices_a_broken_pair(broken):
+    """The two traps of a packed pair, broken in the model: equal halves of
+    the row max must go to the odd (later) column, and the M-zero quirk must
+    mask each half on its own."""
+    arrs = extend16_problems(192)
+    opt = OTHER_SCORES["free insertions"] if broken == "ties_to_odd" else OPT
+    got, _ = run_model16(arrs, opt, **{broken: False})
+    assert not np.array_equal(got, plain_extend(arrs, opt))
 
 
 # ----------------------------------------------------------------------

@@ -21,6 +21,7 @@ import torch
 # name: the launcher whose count the launch moves
 KERNELS = {
     "extend_kernel": "cuda_extend.extend_cuda",
+    "extend16_kernel": "cuda_extend.extend16_cuda",
     "local_kernel": "cuda_local.local_cuda",
     "global_kernel score": "cuda_global.global_score_cuda",
     "global_kernel z": "cuda_global.global_z_cuda",
@@ -35,7 +36,7 @@ KERNELS = {
     "smem_pass sharded": "cuda_seed.smem_pass_sharded_cuda",
     "pass3 sharded": "cuda_seed.pass3_sharded_cuda",
 }
-# the kernels that use shared memory: K1's and K3's scoring matrix, K2's
+# the kernels that use shared memory: K1's (both forms) and K3's scoring matrix, K2's
 # row maxima, K4's window, S1's and S3's occ4 rows filled by cp.async (K5
 # keeps its records in registers)
 SHARED_MEMORY = tuple(name for name in KERNELS if "rank" not in name)
@@ -86,6 +87,8 @@ def cases(dev):
     qs, ts, ws, h0s = extend_problems(31, 16, 64, 128, opt)
     out["extend_kernel"] = (extend_batch, (*on_device(dev, qs, ts, 64, 128, ws, h0s), mat),
                             dict(gaps, zdrop=opt.zdrop))
+    out["extend16_kernel"] = (extend_batch, out["extend_kernel"][1],
+                              dict(gaps, zdrop=opt.zdrop, wide_state=False, max_h0=int(h0s.max())))
     qs, ts = local_problems(32, 16, 64, 160)
     ends = np.where(np.arange(len(qs)) % 3 == 0, 40, NEVER).astype(np.int32)
     minscs = np.full(len(qs), 19, np.int32)
