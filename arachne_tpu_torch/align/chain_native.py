@@ -1,4 +1,7 @@
-# Copy of arachne_tpu/align/chain_native.py, the JAX package's host code.
+# Copy of arachne_tpu/align/chain_native.py, the JAX package's host code,
+# but for one split: the body of mem_chain_batch_native after _flatten_mems
+# is mem_chain_flat_native, which device seeding's flat seed arrays enter
+# directly (ops/fm_seed.py SeedBatch); the output is the reference's.
 """Native (C++) seed chaining driver.
 
 Wraps native/chain.cpp's `chain_batch`: mem_chain + mem_chain_flt
@@ -84,13 +87,37 @@ def mem_chain_batch_native(
     native library is unavailable."""
     if not chain_available():
         return None
+    return mem_chain_flat_native(idx, reads, opt, *_flatten_mems(all_mems), n_threads=n_threads)
+
+
+def mem_chain_flat_native(
+    idx: FMIndex,
+    reads: List[np.ndarray],
+    opt: MemOptions,
+    mem_k: np.ndarray,
+    mem_s: np.ndarray,
+    mem_qb: np.ndarray,
+    mem_qe: np.ndarray,
+    mem_off: np.ndarray,
+    n_threads: Optional[int] = None,
+) -> Optional[List[List[Chain]]]:
+    """mem_chain_batch_native on SMEMs given as flat arrays: k, s int64,
+    qb, qe int32 and per-read offsets (n + 1,) int64, read r's SMEMs at
+    mem_off[r]:mem_off[r + 1] in its collector's order.  None when the
+    native library is unavailable."""
+    if not chain_available():
+        return None
     if n_threads is None:
         n_threads = native_threads()
     lib = get_lib()
     n_reads = len(reads)
     if n_reads == 0:
         return []
-    mem_k, mem_s, mem_qb, mem_qe, mem_off = _flatten_mems(all_mems)
+    mem_k = np.ascontiguousarray(mem_k, np.int64)
+    mem_s = np.ascontiguousarray(mem_s, np.int64)
+    mem_qb = np.ascontiguousarray(mem_qb, np.int32)
+    mem_qe = np.ascontiguousarray(mem_qe, np.int32)
+    mem_off = np.ascontiguousarray(mem_off, np.int64)
     rows, seg_id, _ = expand_occurrences(mem_k, mem_s, mem_qb, mem_qe, opt.max_occ)
     occ_qbeg = mem_qb[seg_id].astype(np.int32)
     occ_len = (mem_qe[seg_id] - mem_qb[seg_id]).astype(np.int32)
@@ -199,4 +226,4 @@ def mem_chain_batch_native(
     return out
 
 
-__all__ = ["mem_chain_batch_native", "expand_occurrences"]
+__all__ = ["mem_chain_batch_native", "mem_chain_flat_native", "expand_occurrences"]

@@ -34,6 +34,10 @@ names and units, the headline last:
                  3 molecules x 20 pairs (seed 7), host seeding, best of
                  ``--trials``; its ``detail`` sums up the other lines.
 
+Every line but device_seeded pins host seeding (ARACHNE_DEVICE_SEEDING=0),
+though the card's default is device seeding, so that each measures what it
+measured before device seeding became the default.
+
 Every end-to-end line is one ``align --engine cuda --sam -t 2`` run
 (``measure.timed_run``, as ``measure`` drives the CLI), its accuracy from
 ``runtime/accuracy.evaluate_sam``, and is ``correct`` when its fixture's
@@ -335,10 +339,12 @@ def card_name(dev: torch.device) -> str:
 
 
 @contextlib.contextmanager
-def device_seeding():
-    """ARACHNE_DEVICE_SEEDING=1 while the block runs, restored after."""
+def seeding_env(value: str):
+    """ARACHNE_DEVICE_SEEDING=``value`` while the block runs, restored
+    after: "0" pins host seeding on the card too, where the default is
+    device seeding; "1" seeds on any device."""
     old = os.environ.get("ARACHNE_DEVICE_SEEDING")
-    os.environ["ARACHNE_DEVICE_SEEDING"] = "1"
+    os.environ["ARACHNE_DEVICE_SEEDING"] = value
     try:
         yield
     finally:
@@ -358,9 +364,11 @@ def gapped_records(sam: str) -> int:
     return gapped
 
 
-def aligned(engine: str, lib: Lib, expect: Optional[dict], trials: int = 1) -> dict:
+def aligned(engine: str, lib: Lib, expect: Optional[dict], trials: int = 1,
+            seeding: str = "0") -> dict:
     """``trials`` timed runs of ``align --engine ENGINE --sam -t 2`` on
-    ``lib`` (``measure.timed_run``, each checked), each in a temporary
+    ``lib`` (``measure.timed_run``, each checked) under
+    ``seeding_env(seeding)``, host seeding by default, each in a temporary
     directory removed after.  Returns the best run (least align-loop
     seconds) with the accuracy report and gapped records of the first,
     every run's pairs/s, the kernels' launches over all runs, and
@@ -375,7 +383,8 @@ def aligned(engine: str, lib: Lib, expect: Optional[dict], trials: int = 1) -> d
         work = tempfile.mkdtemp(prefix="arachne_bench_")
         try:
             out = os.path.join(work, "out")
-            run = measure.timed_run(engine, out, lib, THREADS, checked=True)
+            with seeding_env(seeding):
+                run = measure.timed_run(engine, out, lib, THREADS, checked=True)
             if acc is None:
                 sam = os.path.join(out, "bc_sorted_bam.sam")
                 acc, gapped = evaluate_sam(sam), gapped_records(sam)
@@ -456,8 +465,7 @@ def calibration_line(engine, dev, lib, expect) -> dict:
 
 
 def device_seeded_line(engine, dev, lib, expect) -> dict:
-    with device_seeding():
-        r = aligned(engine, lib, expect)
+    r = aligned(engine, lib, expect, seeding="1")
     return {
         "metric": "end_to_end_device_seeded_pairs_per_sec",
         "value": r["best"]["pairs_per_s"],

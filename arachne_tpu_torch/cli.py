@@ -16,9 +16,11 @@ engines:
   torch-cpu  TorchEngine on the CPU: the kernels' plain PyTorch versions;
   oracle     the reference's scalar host engine, barcode by barcode.
 
-TorchEngine seeds on the host unless ARACHNE_DEVICE_SEEDING=1, which moves
-SMEM seeding onto its device (kernels S1 and S3 on the GPU); any value but
-"0" or "1" is an error.
+TorchEngine seeds on its device when that is a GPU (kernels S1 and S3, as
+the reference seeds on its chip) and on the host on the CPU;
+ARACHNE_DEVICE_SEEDING=0 seeds on the host on the GPU too, =1 on the
+device on the CPU too (the plain lockstep S1/S3: slow); any value but "0"
+or "1" is an error.
 
 ``align --checkpoint CK`` saves claim manifests as it goes; the same
 command after a crash resumes exactly once, writing ``.gen<N>`` shards
@@ -398,7 +400,8 @@ def main(argv=None):
         "--engine", choices=sorted(ENGINES), default="cuda",
         help="cuda = kernels on the GPU (raises without one); torch-cpu = "
         "their plain PyTorch versions on the CPU; oracle = scalar host engine. "
-        "ARACHNE_DEVICE_SEEDING=1 seeds on the engine's device too",
+        "cuda seeds on the GPU (kernels S1, S3) unless ARACHNE_DEVICE_SEEDING=0; "
+        "torch-cpu seeds on the host unless ARACHNE_DEVICE_SEEDING=1",
     )
     al.add_argument(
         "--index-mode", choices=["auto", "replicated", "sharded"], default="auto",

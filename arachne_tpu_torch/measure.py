@@ -8,7 +8,9 @@ makes the fixture chip_smoke.py runs (by default a 2 Mbp random genome and
 0.1), builds its index and warms the kernels, then:
 
   * ``--trials N``: N timed runs of ``align --engine ENGINE --sam``, each
-    with pairs/s, the align loop's seconds and the stage seconds;
+    with pairs/s, the align loop's seconds and the stage seconds, seeding
+    where the engine's device seeds by default (the card; the host for
+    torch-cpu) unless ARACHNE_DEVICE_SEEDING says otherwise;
   * ``--profile``: one more run under torch.profiler (CUDA only), giving
     the device's busy time, its share of the align loop and the device
     time of each kernel and copy by name;

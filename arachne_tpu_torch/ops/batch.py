@@ -5,8 +5,9 @@ A copy of the reference's arachne_tpu/ops/batch.py (``batch_align_single``
 and its helpers; that module cannot be imported without JAX) bound to the
 port's ``BatchExtender``:
 
-  1. SMEM seeding, on the device (``fm_seed.collect_seeds_device``, kernels
-     S1 and S3) when given the index's device tables, else on the host (the
+  1. SMEM seeding, on the device (``fm_seed.collect_seeds_device_flat``,
+     kernels S1 and S3, whose flat seed arrays go straight into the native
+     chainer) when given the index's device tables, else on the host (the
      native C++ collector when it loads); then host chaining and filtering
      per read;
   2. wave 1: every seed's LEFT extension at the base band, deduplicated by
@@ -29,7 +30,7 @@ from ..index.fmindex import FMIndex
 from ..runtime.timers import TIMERS
 
 from .fm_rank import RankTables
-from .fm_seed import collect_seeds_device
+from .fm_seed import collect_seeds_device_flat
 from .sw_extend import BatchExtender
 
 
@@ -87,9 +88,10 @@ def batch_align_single(
     runs on its device too."""
     if mat is None:
         mat = opt.scoring_matrix()
+    flat = None
     if dfm is not None:
         with TIMERS.stage("seed.device"):
-            all_mems = collect_seeds_device(reads, opt, dfm)
+            flat = collect_seeds_device_flat(reads, opt, dfm)
     else:
         from ..align.smem_native import smem_available
 
@@ -106,11 +108,18 @@ def batch_align_single(
     per_read_chains: List[List[Chain]] = []
     seed_probs: List[_SeedProblems] = []
     with TIMERS.stage("chain.host"):
-        from ..align.chain_native import mem_chain_batch_native
+        from ..align.chain_native import mem_chain_batch_native, mem_chain_flat_native
 
-        chained = mem_chain_batch_native(idx, reads, opt, all_mems)
+        if flat is not None:
+            # the device's seeds enter the native chainer as flat arrays
+            chained = mem_chain_flat_native(idx, reads, opt, flat.k, flat.s, flat.qb, flat.qe,
+                                            flat.off)
+        else:
+            chained = mem_chain_batch_native(idx, reads, opt, all_mems)
         prefiltered = chained is not None
         if chained is None:
+            if flat is not None:
+                all_mems = flat.to_lists()
             chained = mem_chain_batch(idx, reads, opt, all_mems)
         for codes, chains in zip(reads, chained):
             if not prefiltered:

@@ -1,10 +1,11 @@
 """TorchEngine: barcode-level batched candidate generation on one device.
 
 The port of the reference's TpuEngine (arachne_tpu/ops/engine.py): all
-reads of a superbatch run through seeding (on the host, or on the device
-with kernels S1 and S3 when device seeding is on) and device-batched
-extension (ops.batch, kernel K1), wave-batched mate rescue (ops.sw_local,
-K2) and wave-batched CIGAR finalization (ops.sw_global, K3 + K4).  Output
+reads of a superbatch run through seeding (on the device with kernels S1
+and S3 when device seeding is on, the default on a card; else on the
+host) and device-batched extension (ops.batch, kernel K1), wave-batched
+mate rescue (ops.sw_local, K2) and wave-batched CIGAR finalization
+(ops.sw_global, K3 + K4).  Output
 is identical to the oracle engine: every sequential decision (rescue skip
 windows, dedup after each rescue, reg2aln's w2-doubling loop) is replayed
 on the host with the device results in hand.  It plugs into the RFA
@@ -67,15 +68,19 @@ _placement: "weakref.WeakKeyDictionary[FMIndex, Dict[tuple, str]]" = weakref.Wea
 INDEX_MODES = ("auto", "replicated", "sharded")
 
 
-def resolve_device_seeding(device_seeding: Optional[bool] = None) -> bool:
+def resolve_device_seeding(device_seeding: Optional[bool] = None, device=None) -> bool:
     """Seed on the device?  An explicit argument wins; else the environment
     variable ARACHNE_DEVICE_SEEDING, "1" or "0", where any other value
-    raises; else no: host seeding on every device."""
+    raises; else yes on a CUDA device, as the reference seeds on its chip,
+    and no on any other device or none.  (The reference seeds on the
+    device on the CPU platform too; here the CPU runs S1/S3 as their plain
+    lockstep versions, an oracle, not a path, so the CPU seeds on the
+    host.)"""
     if device_seeding is not None:
         return bool(device_seeding)
     env = os.environ.get("ARACHNE_DEVICE_SEEDING")
     if env is None:
-        return False
+        return device is not None and torch.device(device).type == "cuda"
     if env not in ("0", "1"):
         raise ValueError(f"ARACHNE_DEVICE_SEEDING={env!r}: expected '0' or '1'")
     return env == "1"
@@ -109,7 +114,8 @@ def device_tables(idx: FMIndex, device: torch.device) -> DeviceFMIndex:
                 raise RuntimeError(
                     f"device seeding: the index's rank tables need {need} bytes, over the "
                     f"budget of {budget} on {device} (with more than one card, --index-mode "
-                    "sharded or auto splits them across the cards)"
+                    "sharded or auto splits them across the cards; ARACHNE_DEVICE_SEEDING=0 "
+                    "seeds on the host)"
                 )
             dfm = DeviceFMIndex.from_host(idx, device)
             per_device[device] = dfm
@@ -200,9 +206,10 @@ def warmup(device: torch.device) -> None:
 class TorchEngine:
     """Batched device engine bound to one index, config and device.
 
-    ``device_seeding`` as ``resolve_device_seeding`` reads it; when on,
-    seeding runs on the device against the index's shared rank tables,
-    placed by ``rank_tables`` under ``cfg.pipeline.index_mode``."""
+    ``device_seeding`` as ``resolve_device_seeding`` reads it for the
+    engine's device (on by default on a card); when on, seeding runs on
+    the device against the index's shared rank tables, placed by
+    ``rank_tables`` under ``cfg.pipeline.index_mode``."""
 
     def __init__(self, idx: FMIndex, cfg: ArachneConfig, device="cuda",
                  device_seeding: Optional[bool] = None):
@@ -216,7 +223,7 @@ class TorchEngine:
         self.global_ = BatchGlobal(cfg.mem, self.device)
         self.dfm = (
             rank_tables(idx, self.device, cfg.pipeline.index_mode)
-            if resolve_device_seeding(device_seeding) else None
+            if resolve_device_seeding(device_seeding, self.device) else None
         )
 
     # ------------------------------------------------------------------

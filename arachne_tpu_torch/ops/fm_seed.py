@@ -12,17 +12,22 @@ and must write exactly what the lockstep versions write.
 Fixed-size buffers replace the reference's growable vectors:
   * MAXC: carried intervals per sweep (curr/prev, bwt.c:304-345);
   * MAXS: SMEMs recorded per read per pass.
-A read that overflows one is flagged.  ``collect_seeds_device`` sizes them
-by ``seed_buffers`` so that no read can overflow; reads that overflow
+A read that overflows one is flagged.  ``collect_seeds_device_flat`` sizes
+them by ``seed_buffers`` so that no read can overflow; reads that overflow
 smaller buffers a caller asks for are redone on the same device at that
 size, counted in ``overflow_redos`` and timed as the stage
-``seed.device.redo``.  Its output is always the scalar collector's.
+``seed.device.redo``.  Its output is always the scalar collector's, as one
+``SeedBatch`` of flat rows built from the kernels' output buffers with
+numpy, no loop over reads or jobs: the native chainer takes it as it is
+(align/chain_native.py ``mem_chain_flat_native``).  ``collect_seeds_device``
+gives the same seeds as per-read SMEM lists.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Iterator, List, Optional, Tuple
+from dataclasses import dataclass
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -314,13 +319,16 @@ def pad_reads(reads: List[np.ndarray], device) -> Tuple[torch.Tensor, torch.Tens
     sets the step caps (16 * L + 64, 8 * L + 64), so it is padded as the
     reference pads it."""
     n = len(reads)
+    lens = np.fromiter(map(len, reads), np.int64, n)
     R = -(-max(n, 1) // 64) * 64
-    L = max(64, -(-max((len(r) for r in reads), default=0) // 64) * 64)
+    L = max(64, -(-int(lens.max(initial=0)) // 64) * 64)
     qs = np.full((R, L), 4, np.int8)
+    if lens.sum():
+        starts = np.cumsum(lens) - lens
+        cols = np.arange(int(lens.sum())) - np.repeat(starts, lens)
+        qs[np.repeat(np.arange(n), lens), cols] = np.concatenate(reads)
     qlens = np.zeros(R, np.int32)
-    for r, read in enumerate(reads):
-        qs[r, : len(read)] = read
-        qlens[r] = len(read)
+    qlens[:n] = lens
     return torch.from_numpy(qs).to(device), torch.from_numpy(qlens).to(device)
 
 
@@ -333,44 +341,171 @@ def seed_buffers(L: int) -> int:
     return L + 2
 
 
-def _rows(out: np.ndarray, cnt: np.ndarray, r: int) -> Iterator[SMEM]:
-    for t in range(int(cnt[r])):
-        k, l, s, qb, qe = (int(v) for v in out[r, t])
-        yield SMEM(k=k, l=l, s=s, qb=qb, qe=qe)
+@dataclass
+class SeedBatch:
+    """Every read's SMEMs as flat rows: read r's are rows off[r]:off[r+1],
+    in its final order (qb, then qe).  k, l, s int64 (rows of a wide index
+    pass 2^32), qb, qe int32: what the native chainer takes."""
+
+    off: np.ndarray
+    k: np.ndarray
+    l: np.ndarray
+    s: np.ndarray
+    qb: np.ndarray
+    qe: np.ndarray
+
+    @classmethod
+    def of_rows(cls, n: int, read: np.ndarray, rows: np.ndarray) -> "SeedBatch":
+        """The batch of ``n`` reads from rows (N, 5) of (k, l, s, qb, qe)
+        sorted by their reads ``read`` (N,), each read's in its order."""
+        off = np.zeros(n + 1, np.int64)
+        np.cumsum(np.bincount(read, minlength=n), out=off[1:])
+        rows = rows.astype(np.int64, copy=False)
+        return cls(off, *(np.ascontiguousarray(rows[:, c]) for c in range(3)),
+                   *(rows[:, c].astype(np.int32) for c in (3, 4)))
+
+    def reads(self) -> np.ndarray:
+        """Each row's read."""
+        return np.repeat(np.arange(len(self.off) - 1), np.diff(self.off))
+
+    def rows(self) -> np.ndarray:
+        """(N, 5) int64 rows of (k, l, s, qb, qe)."""
+        return np.stack([self.k, self.l, self.s, self.qb, self.qe], axis=1)
+
+    def to_lists(self) -> List[List[SMEM]]:
+        """The per-read SMEM lists of ``align.smem.collect_seeds``."""
+        mems = [SMEM(*m) for m in self.rows().tolist()]
+        off = self.off.tolist()
+        return [mems[a:b] for a, b in zip(off[:-1], off[1:])]
+
+
+class Jobs(NamedTuple):
+    """Pass 2's jobs, read-major and in SMEM order within a read
+    (bwamem.c:130-145): one single sweep each from ``pivot`` with
+    ``min_intv``."""
+
+    read: np.ndarray
+    pivot: np.ndarray
+    min_intv: np.ndarray
+
+
+def _kept(out: np.ndarray, cnt: np.ndarray, ok: np.ndarray, min_len: int):
+    """The rows t < cnt[r] of every r with ok[r] whose qe - qb >= min_len,
+    row-major: their r (N,) and their values (N, 5)."""
+    t = np.arange(out.shape[1])
+    mask = (t[None, :] < cnt[:, None]) & ok[:, None]
+    mask &= out[:, :, 4] - out[:, :, 3] >= min_len
+    r, t = np.nonzero(mask)
+    return r, out[r, t]
 
 
 def pass1_seeds(out1, n1, overflow, n: int, opt: MemOptions):
-    """Pass 1's SMEMs of at least min_seed_len per read, and each read's
-    pass-2 jobs (pivot, min_intv) for the long ones that occur rarely
-    enough (bwamem.c:130-145)."""
+    """Pass 1's SMEMs of at least min_seed_len of the first ``n`` reads
+    that did not overflow, as (read, rows (N, 5)), and the pass-2 jobs of
+    the long ones that occur rarely enough (bwamem.c:130-145)."""
     split_len = int(opt.min_seed_len * opt.split_factor + 0.499)
-    seeds: List[List[SMEM]] = []
-    jobs: List[List[Tuple[int, int]]] = []
-    for r in range(n):
-        lst, jl = [], []
-        if not overflow[r]:
-            for m in _rows(out1, n1, r):
-                if m.qe - m.qb >= opt.min_seed_len:
-                    lst.append(m)
-                    if m.length >= split_len and m.s <= opt.split_width:
-                        jl.append(((m.qb + m.qe) >> 1, m.s + 1))
-        seeds.append(lst)
-        jobs.append(jl)
-    return seeds, jobs
+    read, rows = _kept(out1[:n], n1[:n], ~np.asarray(overflow[:n], bool), opt.min_seed_len)
+    k, l, s, qb, qe = rows.T
+    job = (qe - qb >= split_len) & (s <= opt.split_width)
+    jobs = Jobs(read[job], ((qb[job] + qe[job]) >> 1).astype(np.int32),
+                (s[job] + 1).astype(np.int32))
+    return (read, rows), jobs
 
 
-def pass2_inputs(jobs: List[List[Tuple[int, int]]], qs: torch.Tensor, qlens: torch.Tensor):
-    """Pass 2 as one S1 launch: one row per job, the reads' jobs in order
-    and each read's in its own order.  Returns read_of (J,) int64 numpy,
-    the job's read, then qs (J, L), qlens, pivots and min_intvs (J,)
-    int32, gathered on qs's device."""
-    read_of = np.array([r for r, jl in enumerate(jobs) for _ in jl], np.int64)
-    piv = np.array([[p, mi] for jl in jobs for p, mi in jl], np.int32).reshape(-1, 2)
+def pass2_inputs(jobs: Jobs, qs: torch.Tensor, qlens: torch.Tensor):
+    """Pass 2 as one S1 launch: one row per job, in the jobs' order.
+    Returns read_of (J,) int64 numpy, the job's read, then qs (J, L),
+    qlens, pivots and min_intvs (J,) int32, on qs's device."""
     dev = qs.device
-    sel = torch.from_numpy(read_of).to(dev)
-    return (read_of, qs.index_select(0, sel), qlens.index_select(0, sel),
-            torch.from_numpy(np.ascontiguousarray(piv[:, 0])).to(dev),
-            torch.from_numpy(np.ascontiguousarray(piv[:, 1])).to(dev))
+    sel = torch.from_numpy(jobs.read).to(dev)
+    return (jobs.read, qs.index_select(0, sel), qlens.index_select(0, sel),
+            torch.from_numpy(jobs.pivot).to(dev), torch.from_numpy(jobs.min_intv).to(dev))
+
+
+def _fetch(res):
+    """A pass's out (only the slots some read filled), out_n and overflow
+    flags on the host."""
+    out, cnt, ovf = res
+    used = int(cnt.max())
+    return out[:, :used].cpu().numpy(), cnt.cpu().numpy(), ovf.cpu().numpy()
+
+
+def collect_seeds_device_flat(
+    reads: List[np.ndarray],
+    opt: MemOptions,
+    dfm: RankTables,
+    MAXC: Optional[int] = None,
+    MAXS: Optional[int] = None,
+) -> SeedBatch:
+    """Three-pass seed collection with the sweeps on dfm's device (a
+    DeviceFMIndex, or a ShardedFMIndex's seeding device), gathered from
+    the kernels' output buffers in bulk: the seeds of
+    align.smem.collect_seeds, read for read, as one SeedBatch.
+
+    MAXC and MAXS default to ``seed_buffers`` of the padded width, which no
+    read can overflow (an overflow there raises); reads that overflow
+    smaller ones are redone on the same device at that size and counted in
+    ``overflow_redos``."""
+    global overflow_redos
+    n = len(reads)
+    empty = np.zeros((0, 5), np.int64)
+    if n == 0:
+        return SeedBatch.of_rows(0, np.zeros(0, np.int64), empty)
+    dev = dfm.device
+    qs, qlens = pad_reads(reads, dev)
+    R, L = qs.shape
+    sized = MAXC is None and MAXS is None
+    MAXC = seed_buffers(L) if MAXC is None else MAXC
+    MAXS = seed_buffers(L) if MAXS is None else MAXS
+
+    # pass 1, and pass 3, which needs nothing of passes 1-2, launched before
+    # the host first waits on the device
+    ones = torch.ones(R, dtype=torch.int32, device=dev)
+    res1 = smem_pass(dfm, qs, qlens, ones * 0, ones, False, MAXC, MAXS)
+    res3 = pass3(dfm, qs, qlens, opt.min_seed_len, opt.max_mem_intv, MAXS) \
+        if opt.max_mem_intv > 0 else None
+    out1, n1, ovf1 = _fetch(res1)
+    overflow = ovf1[:n].astype(bool)
+    (read1, rows1), jobs = pass1_seeds(out1, n1, overflow, n, opt)
+
+    # pass 2: every job a single sweep of its own, all in one launch
+    read2, rows2 = np.zeros(0, np.int64), empty
+    if len(jobs.read):
+        read_of, *job_args = pass2_inputs(jobs, qs, qlens)
+        o2, c2, ov2 = _fetch(smem_pass(dfm, *job_args, True, MAXC, MAXS))
+        overflow[read_of[ov2.astype(bool)]] = True
+        j, rows2 = _kept(o2, c2, np.ones(len(read_of), bool), opt.min_seed_len)
+        read2 = read_of[j]
+
+    read3, rows3 = np.zeros(0, np.int64), empty
+    if res3 is not None:
+        o3, c3, ov3 = _fetch(res3)
+        overflow |= ov3[:n].astype(bool)
+        read3, rows3 = _kept(o3[:n], c3[:n], np.ones(n, bool), 0)
+
+    # merge: passes 1, 2, 3 in that order, then a stable sort by read and
+    # (qb << 32) | qe, as collect_seeds sorts pass1 + pass2 + pass3
+    read = np.concatenate([read1, read2, read3])
+    rows = np.concatenate([rows1, rows2, rows3]).astype(np.int64)
+    keep = ~overflow[read]
+    read, rows = read[keep], rows[keep]
+    order = np.lexsort(((rows[:, 3] << 32) | rows[:, 4], read))
+    read, rows = read[order], rows[order]
+
+    redo = np.flatnonzero(overflow)
+    if len(redo):
+        if sized:
+            raise RuntimeError(f"collect_seeds_device: {len(redo)} reads overflowed buffers "
+                               f"of {MAXC} intervals / {MAXS} SMEMs at width {L}")
+        with _redo_lock:
+            overflow_redos += len(redo)
+        with TIMERS.stage("seed.device.redo"):
+            again = collect_seeds_device_flat([reads[r] for r in redo], opt, dfm)
+        read = np.concatenate([read, redo[again.reads()]])
+        rows = np.concatenate([rows, again.rows()])
+        order = np.argsort(read, kind="stable")
+        read, rows = read[order], rows[order]
+    return SeedBatch.of_rows(n, read, rows)
 
 
 def collect_seeds_device(
@@ -380,70 +515,6 @@ def collect_seeds_device(
     MAXC: Optional[int] = None,
     MAXS: Optional[int] = None,
 ) -> List[List[SMEM]]:
-    """Three-pass seed collection with the sweeps on dfm's device (a
-    DeviceFMIndex, or a ShardedFMIndex's seeding device).
-
-    Identical per-read output to align.smem.collect_seeds.  MAXC and MAXS
-    default to ``seed_buffers`` of the padded width, which no read can
-    overflow; reads that overflow smaller ones are redone on the same
-    device at that size and counted in ``overflow_redos``."""
-    global overflow_redos
-    n = len(reads)
-    if n == 0:
-        return []
-    dev = dfm.device
-    qs, qlens = pad_reads(reads, dev)
-    R, L = qs.shape
-    sized = MAXC is None and MAXS is None
-    MAXC = seed_buffers(L) if MAXC is None else MAXC
-    MAXS = seed_buffers(L) if MAXS is None else MAXS
-
-    def fetch(res):
-        out, cnt, ovf = res
-        used = int(cnt.max())   # copy only the slots some read filled
-        return out[:, :used].cpu().numpy(), cnt.cpu().numpy(), ovf.cpu().numpy()
-
-    # ---- pass 1 ----
-    ones = torch.ones(R, dtype=torch.int32, device=dev)
-    out1, n1, overflow = fetch(smem_pass(
-        dfm, qs, qlens, torch.zeros(R, dtype=torch.int32, device=dev), ones,
-        False, MAXC, MAXS))
-    overflow = overflow.copy()
-    pass1, jobs = pass1_seeds(out1, n1, overflow, n, opt)
-
-    # ---- pass 2: every job a single sweep of its own, all in one launch ----
-    pass2: List[List[SMEM]] = [[] for _ in range(n)]
-    read_of, *job_args = pass2_inputs(jobs, qs, qlens)
-    if len(read_of):
-        o2, c2, ov2 = fetch(smem_pass(dfm, *job_args, True, MAXC, MAXS))
-        np.logical_or.at(overflow, read_of, ov2)
-        for jb, r in enumerate(read_of.tolist()):
-            if not overflow[r]:
-                pass2[r].extend(m for m in _rows(o2, c2, jb) if m.qe - m.qb >= opt.min_seed_len)
-
-    # ---- pass 3 ----
-    pass3_: List[List[SMEM]] = [[] for _ in range(n)]
-    if opt.max_mem_intv > 0:
-        o3, c3, ov3 = fetch(pass3(dfm, qs, qlens, opt.min_seed_len, opt.max_mem_intv, MAXS))
-        overflow |= ov3
-        for r in range(n):
-            if not overflow[r]:
-                pass3_[r].extend(_rows(o3, c3, r))
-
-    out: List[List[SMEM]] = []
-    for r in range(n):
-        mems = pass1[r] + pass2[r] + pass3_[r]
-        mems.sort(key=lambda m: (m.qb << 32) | m.qe)
-        out.append(mems)
-    redo = [r for r in range(n) if overflow[r]]
-    if redo:
-        if sized:
-            raise RuntimeError(f"collect_seeds_device: {len(redo)} reads overflowed buffers "
-                               f"of {MAXC} intervals / {MAXS} SMEMs at width {L}")
-        with _redo_lock:
-            overflow_redos += len(redo)
-        with TIMERS.stage("seed.device.redo"):
-            again = collect_seeds_device([reads[r] for r in redo], opt, dfm)
-        for r, mems in zip(redo, again):
-            out[r] = mems
-    return out
+    """``collect_seeds_device_flat`` as per-read SMEM lists: identical
+    per-read output to align.smem.collect_seeds."""
+    return collect_seeds_device_flat(reads, opt, dfm, MAXC, MAXS).to_lists()

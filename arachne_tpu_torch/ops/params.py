@@ -3,7 +3,8 @@
 The kernels read the scoring matrix from a (5, 5) int32 tensor on their
 device and the gap/z-drop scalars as ints.  The FM-index is not converted:
 the port loads the same ``ref.fa.arx.npz`` through its own
-``index.load_index`` and seeds on the host, as the reference does.
+``index.load_index``; device seeding uploads its rank tables
+(ops/fm_rank.py).
 """
 
 from __future__ import annotations

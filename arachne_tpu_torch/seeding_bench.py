@@ -18,11 +18,12 @@ in a table of that size, not in the 50 MB L2), it
     queries/s, beside the bytes the batch must move (``rank_bytes``);
   * on the index only: times seed collection on the same reads (150 bp
     from the genome, with a few substitutions) through
-    ``collect_seeds_device`` (kernels S1 and S3 and their host glue)
-    against the host C++ collector ``collect_seeds_native``, in reads/s,
-    and splits the device time of one ``collect_seeds_device`` call into
-    S1 (pass 1, and pass 2 with every job in one launch), S3 and copies;
-    the seeds must be identical read for read.
+    ``collect_seeds_device_flat`` (kernels S1 and S3 and their bulk host
+    glue: the main path's form) and ``collect_seeds_device`` (the same as
+    per-read SMEM lists) against the host C++ collector
+    ``collect_seeds_native``, in reads/s, and splits the device time of
+    one flat call into S1 (pass 1, and pass 2 with every job in one
+    launch), S3 and copies; the seeds must be identical read for read.
 
 With ``--sharded-cards N`` it does something else: the synthetic table
 split across the first N visible cards (seeded from card 0, each record
@@ -53,7 +54,7 @@ from .config import MemOptions
 from .device import cuda_ms, device_ms, graph_ms, probe, resolve_device
 from .ops.cuda_seed import pass3_cuda, pass3_sharded_cuda, smem_pass_cuda, smem_pass_sharded_cuda
 from .ops.fm_rank import DeviceFMIndex, ShardedFMIndex, occ4_device, occ4_torch
-from .ops.fm_seed import collect_seeds_device
+from .ops.fm_seed import collect_seeds_device, collect_seeds_device_flat
 
 # GRCh38 forward + reverse, ~6.2e9 rows, in blocks of 128
 GRCH38_BLOCKS = 48_400_000
@@ -294,10 +295,12 @@ def ms_text(ms: Optional[float]) -> str:
 
 
 def seeding_rates(idx, fm: DeviceFMIndex, reads: List[np.ndarray], opt) -> Dict[str, float]:
-    """Seed collection on the card against the host C++ collector on the
-    same reads; raises unless their seeds are identical.  The device time
-    of one ``collect_seeds_device`` call covers every launch it makes (pass
-    1, pass 2, pass 3) and its copies."""
+    """Seed collection on the card, as the flat SeedBatch the main path
+    chains (``collect_seeds_device_flat``) and as per-read SMEM lists
+    (``collect_seeds_device``), against the host C++ collector on the same
+    reads; raises unless their seeds are identical.  The device time of
+    one flat call covers every launch it makes (pass 1, pass 2, pass 3)
+    and its copies."""
     from .align.smem_native import collect_seeds_native, smem_available
 
     if not smem_available():
@@ -305,23 +308,29 @@ def seeding_rates(idx, fm: DeviceFMIndex, reads: List[np.ndarray], opt) -> Dict[
     collect_seeds_device(reads[:64], opt, fm)   # warm
     s1_before, s3_before = smem_pass_cuda.launches, pass3_cuda.launches
     t0 = time.perf_counter()
-    dev_seeds = collect_seeds_device(reads, opt, fm)
-    t_dev = time.perf_counter() - t0
+    flat = collect_seeds_device_flat(reads, opt, fm)
+    t_flat = time.perf_counter() - t0
     s1_launches = smem_pass_cuda.launches - s1_before
     s3_launches = pass3_cuda.launches - s3_before
-    parts = device_parts_ms(lambda: collect_seeds_device(reads, opt, fm)) or {}
+    t0 = time.perf_counter()
+    dev_seeds = collect_seeds_device(reads, opt, fm)
+    t_dev = time.perf_counter() - t0
+    parts = device_parts_ms(lambda: collect_seeds_device_flat(reads, opt, fm)) or {}
     t0 = time.perf_counter()
     host_seeds = collect_seeds_native(idx, reads, opt)
     t_host = time.perf_counter() - t0
-    bad = [i for i, (a, b) in enumerate(zip(dev_seeds, host_seeds)) if a != b]
-    if bad:
-        raise AssertionError(f"device seeds differ from the native collector's: reads {bad[:10]}")
+    for name, seeds in (("flat", flat.to_lists()), ("list", dev_seeds)):
+        bad = [i for i, (a, b) in enumerate(zip(seeds, host_seeds)) if a != b]
+        if bad:
+            raise AssertionError(f"device seeds ({name}) differ from the native collector's: "
+                                 f"reads {bad[:10]}")
     n = len(reads)
     kernel_ms = parts["s1"] + parts["s3"] if parts else None
     return {"reads": n, "s1_launches": s1_launches, "s3_launches": s3_launches,
             "s1_device_ms": parts.get("s1"), "s3_device_ms": parts.get("s3"),
             "copy_device_ms": parts.get("copies"), "other_device_ms": parts.get("other"),
             "kernel_reads_per_s": n / kernel_ms * 1e3 if kernel_ms else None,
+            "flat_s": t_flat, "flat_reads_per_s": n / t_flat,
             "device_s": t_dev, "device_reads_per_s": n / t_dev,
             "native_s": t_host, "native_reads_per_s": n / t_host}
 
@@ -383,8 +392,9 @@ def main(argv=None) -> dict:
     reads = sample_reads(unpack_2bit(packed.pac, 0, packed.l_pac), args.reads)
     res["seeding"] = seeding_rates(idx, fm, reads, MemOptions())
     s = res["seeding"]
-    print(f"seeding {s['reads']} reads: collect_seeds_device {s['device_reads_per_s']:.0f} "
-          f"reads/s, native {s['native_reads_per_s']:.0f} reads/s, seeds identical; device "
+    print(f"seeding {s['reads']} reads: collect_seeds_device_flat {s['flat_reads_per_s']:.0f} "
+          f"reads/s, collect_seeds_device (lists) {s['device_reads_per_s']:.0f} reads/s, "
+          f"native {s['native_reads_per_s']:.0f} reads/s, seeds identical; device "
           f"time of one call: S1 {ms_text(s['s1_device_ms'])} ({s['s1_launches']} launches) + "
           f"S3 {ms_text(s['s3_device_ms'])} ({s['s3_launches']}), copies "
           f"{ms_text(s['copy_device_ms'])}, other {ms_text(s['other_device_ms'])}", flush=True)

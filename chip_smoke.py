@@ -50,15 +50,21 @@ result line):
      Then K5's own path, ``python -m arachne_tpu_torch.seeding_bench`` on
      the library's index: rank queries/s at three batch sizes on both
      tables, and device against host seeding on 4096 reads;
-  3. the align main path (arachne_tpu_torch.cli align --engine cuda, host
-     seeding) on the library; every kernel K1-K4 must have launched in that
-     run and accuracy must reach 0.99;
-  4. byte identity of the SAM shards with the scalar oracle engine on a
-     300-pair fixture;
-  5. the main path with device seeding (ARACHNE_DEVICE_SEEDING=1) on the
-     same library: S1, S3 and K1-K4 must have launched, no read may have
-     been redone after an overflow, accuracy must reach 0.99, and every SAM
-     shard must be byte-identical to phase 3's;
+  3. the host-seeded path, pinned: ``arachne_tpu_torch.cli align --engine
+     cuda`` on the library with ARACHNE_DEVICE_SEEDING=0; every kernel
+     K1-K4 must have launched in that run, S1 and S3 never, and accuracy
+     must reach 0.99; its shards are what phases 5-6 are held to;
+  4. byte identity of the SAM shards of the default run (device seeding)
+     with the scalar oracle engine on a 300-pair fixture;
+  5. the main path as a user runs it, with no ARACHNE_DEVICE_SEEDING: it
+     seeds on the card, so S1, S3 and K1-K4 must have launched, no read may
+     have been redone after an overflow, accuracy must reach 0.99, and
+     every SAM shard must be byte-identical to phase 3's.  The kernel
+     table's launches of K1-K4, S1 and S3 are this run's;
+     5b. three trials in turns of phase 3's host-seeded run and phase 5's
+         default run on the library (host, default, host, ...): each
+         one's pairs/s and its seed.* and chain.host stage seconds are
+         logged, and its shards must equal phase 3's;
   6. the main path's other routes, each on phase 3's library and command
      line, each shard set held to phase 3's:
      6a. ``python -m arachne_tpu_torch.cli align --checkpoint`` killed by
@@ -75,7 +81,9 @@ result line):
      6c. the align command in this process with the device pool pinned to
          [card, card] (ops/devicepool.py): K1-K4 must launch and every
          shard must be byte-identical to phase 3's.
-     Every subprocess has a timeout and is killed if it outlives it;
+     Every subprocess has a timeout and is killed if it outlives it, and
+     each seeds on the card (the default), so in 6b each process uploads
+     its own rank tables;
   7. genome scale, at config 3's size:
      7a. a 4 x 16 Mbp genome of ``python -m
          arachne_tpu_torch.scripts.make_scale_genome`` (seed 7: planted
@@ -87,8 +95,8 @@ result line):
          larger than the L2;
      7b. phase 3's library shape on it, host-seeded and then device-seeded
          (phase 3's and phase 5's checks: launches counted from zero,
-         accuracy, no read redone, identical shards), logged beside phase
-         3's pairs/s;
+         accuracy, no read redone, identical shards), each logged beside
+         the same seeding's pairs/s on the 2 Mbp genome (phases 3 and 5);
      7c. S1 (passes 1 and 2) and S3 on one superbatch of it against their
          plain versions on the card, on its int32 tables (in HBM) and on
          the same tables forced wide (equal to the int32 results, cast); K5
@@ -98,7 +106,8 @@ result line):
      7d. S1 and S3 against their plain versions on random reads over the
          synthetic GRCh38-sized table, whose rows pass 2^31;
   8. the port's bench: ``python -m arachne_tpu_torch.bench --trials 1`` in
-     a subprocess (fixtures cached under build/bench_cache), which must
+     a subprocess (fixtures cached under build/bench_cache; every line but
+     the device-seeded one pins host seeding), which must
      exit 0 with its six lines in the reference's order, each correct (the
      end-to-end lines' output shards at the SHA-256 that
      arachne_tpu_torch/bench_reference.json records from the JAX
@@ -117,9 +126,10 @@ result line):
          S3 on 1,024 random reads, each equal to the flat kernel on
          the whole table and to its plain version on the shards (tolerance
          0), and timed beside the flat kernel;
-     9b. phase 7b's library and 64 Mbp index device-seeded through ``align
-         --index-mode sharded`` with the pool pinned to [card, card] (two
-         shards), counted from zero: K1-K4 and the sharded S1 and S3 must
+     9b. phase 7b's library and 64 Mbp index through ``align --index-mode
+         sharded`` with no ARACHNE_DEVICE_SEEDING (seeding on the card, its
+         default) and the pool pinned to [card, card] (two shards),
+         counted from zero: K1-K4 and the sharded S1 and S3 must
          launch and the flat S1 and S3 must not, no read may be redone, and
          every shard must be byte-identical to 7b's device-seeded run's;
          its pairs/s beside 7b's.  Then the sharded tables' host occ4
@@ -128,9 +138,15 @@ result line):
          superbatch of the library against their plain versions, their
          device times beside phase 7c's flat ones.
 
+The log also gives ``seeding_bench``'s reads/s of device seeding as the
+main path runs it (flat seed arrays), as per-read lists, and of the
+native host collector.
+
 The last three lines of standard output are the kernel table (one JSON
 object, with each kernel's bound and, where one PyTorch call computes the
-same function, that call's time: none does), the card's name and power
+same function, that call's time: none does; launches of K1-K4, S1 and S3
+from phase 5's run, K1 int16's from phase 2, K5's from phase 2b's
+seeding_bench, the sharded kernels' from phase 9), the card's name and power
 limit as nvidia-smi gives them, and ``{"ok": true, "device": {...}}``.
 Without a card, or outside a checkout, it exits non-zero.  It imports
 nothing of JAX or of the JAX package.
@@ -138,6 +154,7 @@ nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import filecmp
 import json
@@ -733,21 +750,23 @@ def seeding_parity(dev, lib, work):
     return rows, {"K5": k5_launches}, bench["seeding"]
 
 
-@phase("3 main path")
-def main_path(work, dev, lib):
+@phase("3 host-seeded path (pinned)")
+def host_seeded_path(work, dev, lib):
     return host_seeded_run(work, dev, lib)
 
 
 def host_seeded_run(work, dev, lib):
-    """``align --engine cuda`` with host seeding on ``lib``, its launches
-    counted from zero: K1-K4 must launch and accuracy reach 0.99.  Returns
-    the main path's launches, the output directory, the stage seconds and
+    """``align --engine cuda`` with host seeding pinned
+    (ARACHNE_DEVICE_SEEDING=0) on ``lib``, its launches counted from zero:
+    K1-K4 must launch, S1 and S3 must not, and accuracy reach 0.99.
+    Returns K1-K4's launches, the output directory, the stage seconds and
     the pairs/s."""
     import torch
 
     from arachne_tpu_torch.runtime.accuracy import evaluate_sam
     from arachne_tpu_torch.runtime.timers import TIMERS
     from arachne_tpu_torch import cli
+    from arachne_tpu_torch.bench import seeding_env
     from arachne_tpu_torch.ops import sw_global
     from arachne_tpu_torch.measure import quiet
     from arachne_tpu_torch.ops.engine import warmup
@@ -758,16 +777,18 @@ def host_seeded_run(work, dev, lib):
     warmup(dev)
     reset_counts()
     torch.cuda.reset_peak_memory_stats(dev)
-    out = os.path.join(work, "out_main")
+    out = os.path.join(work, "out_host_seeded")
     t0 = time.perf_counter()
-    with quiet(os.path.join(work, "main_path.log")):
+    with seeding_env("0"), quiet(os.path.join(work, "host_seeded.log")):
         stats = cli.main(["align", "--engine", "cuda", "--sam", "-t", "2", out, ref, r1, r2])
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in launchers().items()}
     fetches = sw_global.traceback_fetches
-    log(f"   launches in the main path: {launches}; traceback problems {fetches}")
+    log(f"   launches in the host-seeded path: {launches}; traceback problems {fetches}")
     if not all(launches[k] > 0 for k in MAIN_LAUNCHERS) or fetches <= 0:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    if launches["S1"] or launches["S3"]:
+        raise AssertionError(f"ARACHNE_DEVICE_SEEDING=0 still seeded on the card: {launches}")
     log(f"   {stats.reads} pairs, {stats.reads / stats.elapsed:.1f} pairs/s "
         f"(align loop {stats.elapsed:.2f} s, whole call {wall:.2f} s)")
     log(f"   peak device memory {torch.cuda.max_memory_allocated(dev)} bytes")
@@ -813,34 +834,36 @@ def byte_identity(work, ref):
             raise AssertionError(f"{f} differs between --engine cuda and --engine oracle")
 
 
-@phase("5 device-seeded main path")
+@phase("5 the main path (default: device-seeded)")
 def device_seeded_path(work, dev, lib, host_out, host_stages):
-    return device_seeded_run(work, dev, lib, host_out, host_stages)[0]
+    return device_seeded_run(work, dev, lib, host_out, host_stages)
 
 
 def device_seeded_run(work, dev, lib, host_out, host_stages):
-    """``align --engine cuda`` with ARACHNE_DEVICE_SEEDING=1 on ``lib``,
-    its launches counted from zero: S1, S3 and K1-K4 must launch, no read
-    may be redone, accuracy must reach 0.99 and every shard must equal the
-    host-seeded run's in ``host_out``.  Returns S1's and S3's launches, the
-    stage seconds and the pairs/s."""
+    """``align --engine cuda`` on ``lib`` with no ARACHNE_DEVICE_SEEDING,
+    as a user runs it, its launches counted from zero: it seeds on the
+    card, so S1, S3 and K1-K4 must launch, no read may be redone, accuracy
+    must reach 0.99 and every shard must equal the host-seeded run's in
+    ``host_out``.  Returns the launches of K1-K4, S1 and S3, the stage
+    seconds and the pairs/s."""
     import torch
 
     from arachne_tpu_torch.runtime.accuracy import evaluate_sam
     from arachne_tpu_torch.runtime.timers import TIMERS
     from arachne_tpu_torch import cli
-    from arachne_tpu_torch.bench import device_seeding
     from arachne_tpu_torch.measure import quiet, same_shards
     from arachne_tpu_torch.ops import fm_seed
 
     ref, r1, r2, n = lib
+    if "ARACHNE_DEVICE_SEEDING" in os.environ:
+        raise AssertionError("the default run needs ARACHNE_DEVICE_SEEDING unset")
     reset_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     out = os.path.join(work, "out_device_seeding")
-    with device_seeding(), quiet(os.path.join(work, "device_seeding.log")):
+    with quiet(os.path.join(work, "device_seeding.log")):
         stats = cli.main(["align", "--engine", "cuda", "--sam", "-t", "2", out, ref, r1, r2])
     launches = {k: fn.launches for k, fn in launchers().items()}
-    log(f"   launches in the device-seeded path: {launches}")
+    log(f"   launches in the default (device-seeded) path: {launches}")
     if not all(launches[k] > 0 for k in MAIN_LAUNCHERS + ("S1", "S3")):
         raise AssertionError(f"a kernel of the device-seeded path never launched: {launches}")
     stages = {k: v["seconds"] for k, v in TIMERS.as_dict().items()}
@@ -862,7 +885,50 @@ def device_seeded_run(work, dev, lib, host_out, host_stages):
     log(f"   shards byte-identical to phase 3's: {same}")
     if not all(same.values()):
         raise AssertionError(f"device seeding changed the output: {same}")
-    return {k: launches[k] for k in ("S1", "S3")}, stages, stats.reads / stats.elapsed
+    return ({k: launches[k] for k in MAIN_LAUNCHERS + ("S1", "S3")}, stages,
+            stats.reads / stats.elapsed)
+
+
+# trials of each seeding in phase 5b
+SEEDING_TRIALS = 3
+SEEDING_STAGES = ("seed.host", "seed.device", "seed.device.redo", "chain.host")
+
+
+@phase("5b host against device seeding, in turns")
+def seeding_in_turns(work, dev, lib, host_out):
+    """Phase 3's host-seeded run and phase 5's default run, in turns,
+    SEEDING_TRIALS of each: pairs/s and the seeding and chaining stage
+    seconds (summed over the workers), every shard set equal to phase
+    3's."""
+    from arachne_tpu_torch.runtime.timers import TIMERS
+    from arachne_tpu_torch import cli
+    from arachne_tpu_torch.bench import seeding_env
+    from arachne_tpu_torch.measure import quiet, same_shards
+
+    ref, r1, r2, n = lib
+    rows = {"host": [], "default": []}
+    for trial in range(SEEDING_TRIALS):
+        for name in ("host", "default"):
+            out = os.path.join(work, f"out_turns_{name}{trial}")
+            TIMERS.reset()
+            seeding = seeding_env("0") if name == "host" else contextlib.nullcontext()
+            with seeding, quiet(os.path.join(work, f"turns_{name}{trial}.log")):
+                stats = cli.main(["align", "--engine", "cuda", "--sam", "-t", "2", out, ref, r1,
+                                  r2])
+            stages = {k: v["seconds"] for k, v in TIMERS.as_dict().items()}
+            same = same_shards(host_out, out)
+            if stats.reads != n or not all(same.values()):
+                raise AssertionError(f"5b {name} trial {trial}: output differs from phase 3's")
+            row = dict(pairs_per_s=stats.reads / stats.elapsed,
+                       **{k: stages.get(k) for k in SEEDING_STAGES})
+            rows[name].append(row)
+            log(f"   5b trial {trial}, {name} seeding: {row['pairs_per_s']:.2f} pairs/s; "
+                + ", ".join(f"{k} {row[k]}" for k in SEEDING_STAGES if row[k] is not None))
+            shutil.rmtree(out, ignore_errors=True)
+    log("   5b pairs/s in turns: host " + " ".join(f"{r['pairs_per_s']:.2f}" for r in rows["host"])
+        + "; default (device seeding) "
+        + " ".join(f"{r['pairs_per_s']:.2f}" for r in rows["default"]))
+    return rows
 
 
 # seconds any one align subprocess of phase 6 may take (each takes about
@@ -1067,7 +1133,8 @@ def other_routes(work, dev, lib, host_out):
         raise AssertionError("6b: the two processes' records are not phase 3's")
     log(f"   two processes: union of {len(records)} records equals phase 3's; both printed "
         f"the merged {n} read pairs; card memory in use (nvidia-smi) {mem.baseline} MiB "
-        f"before, peak {peak} MiB during ({peak - mem.baseline} MiB for the two processes)")
+        f"before, peak {peak} MiB during ({peak - mem.baseline} MiB for the two processes, "
+        "each seeding on the card with its own rank tables)")
     log(f"   6b in {time.perf_counter() - t0:.1f} s")
 
     # 6c: the device pool pinned to [card, card], counted from zero -------
@@ -1105,7 +1172,7 @@ WIDE_READS = 1024
 
 
 @phase("7 genome scale")
-def genome_scale(work, dev, l2_rows, main_rate):
+def genome_scale(work, dev, l2_rows, rates):
     import torch
 
     from arachne_tpu_torch import seeding_bench
@@ -1148,15 +1215,14 @@ def genome_scale(work, dev, l2_rows, main_rate):
 
     # 7b: the library through the main path, host-seeded then device-seeded
     lib = (ref, r1, r2, n)
-    host_launches, host_out, host_stages, host_rate = host_seeded_run(work, dev, lib)
-    dev_launches, dev_stages, dev_rate = device_seeded_run(work, dev, lib, host_out, host_stages)
+    _, host_out, host_stages, host_rate = host_seeded_run(work, dev, lib)
+    _, dev_stages, dev_rate = device_seeded_run(work, dev, lib, host_out, host_stages)
     keys = ("seed.host", "seed.device", "chain.host", "cigar", "rfa.host", "io.write")
     for name, stages, rate in (("host-seeded", host_stages, host_rate),
                                ("device-seeded", dev_stages, dev_rate)):
-        log(f"   7b {name}: {rate:.1f} pairs/s (phase 3, the 2 Mbp genome, in this call: "
-            f"{main_rate:.1f}); " + ", ".join(f"{k} {stages.get(k)}" for k in keys))
-    res.update(host_rate=host_rate, device_rate=dev_rate, launches={**host_launches,
-                                                                   **dev_launches},
+        log(f"   7b {name}: {rate:.1f} pairs/s (the 2 Mbp genome {name}, in this call: "
+            f"{rates[name]:.1f}); " + ", ".join(f"{k} {stages.get(k)}" for k in keys))
+    res.update(device_rate=dev_rate,
                lib=lib, device_out=os.path.join(work, "out_device_seeding"))
 
     # 7c: the seeding kernels on this index's tables, which lie in HBM
@@ -1205,7 +1271,8 @@ def genome_scale(work, dev, l2_rows, main_rate):
     k5_bound = bound(nbytes=last["bytes"], bytes_per_s=RATES["hbm"])
     log(f"   7c: K5 at {last['B']} rows of this index: {last['graph_ms']:.4f} ms by a graph, "
         f"bound {k5_bound['bound_ms']:.4f} ms at the HBM copy rate; seeding 4096 reads: "
-        f"device {bench['seeding']['device_reads_per_s']:.0f} reads/s, native "
+        f"device flat {bench['seeding']['flat_reads_per_s']:.0f} reads/s, as lists "
+        f"{bench['seeding']['device_reads_per_s']:.0f} reads/s, native "
         f"{bench['seeding']['native_reads_per_s']:.0f} reads/s")
     res.update(k5=dict(last, **k5_bound), seeding=bench["seeding"])
     del fm
@@ -1243,6 +1310,9 @@ def bench_phase(work, dev):
         for bulky in ("accuracy_csv", "calibration", "stage_seconds", "fixture_sha256",
                       "output_sha256"):
             d.pop(bulky, None)
+        # the seeding and chaining stages only: the rest are in the bench's JSON
+        d["stage_seconds"] = {k: v for k, v in line["detail"].get("stage_seconds", {}).items()
+                              if k in SEEDING_STAGES}
         log(f"   {line['metric']} = {line['value']} {line['unit']}, vs_baseline "
             f"{line['vs_baseline']}, correct {line['correct']}; {json.dumps(d)}")
     require_rc("8 bench", rc, 0, text)
@@ -1257,8 +1327,7 @@ def bench_phase(work, dev):
         kind = bench.LINES[name][0]
         lib = bench.FIXTURES[kind](cache)
         reset_counts()
-        with bench.device_seeding():
-            run = bench.aligned("cuda", lib, reference[kind])
+        run = bench.aligned("cuda", lib, reference[kind], seeding="1")
         launches = {k: fn.launches for k, fn in launchers().items()}
         best = run["best"]
         log(f"   {name} fixture device-seeded: {best['pairs']} pairs, "
@@ -1285,7 +1354,6 @@ def sharded_index(work, dev, scale):
     import torch
 
     from arachne_tpu_torch import cli, seeding_bench
-    from arachne_tpu_torch.bench import device_seeding
     from arachne_tpu_torch.config import MemOptions, PipelineOptions
     from arachne_tpu_torch.device import cuda_ms, device_ms, graph_ms
     from arachne_tpu_torch.index import FMIndex, load_index
@@ -1317,11 +1385,12 @@ def sharded_index(work, dev, scale):
                               graph_ms=k5["graph_ms"], plain_ms=k5["plain_ms"],
                               rank_rows=k5["rows"], **bound(nbytes=k5["bytes"]))
 
-    # 9b: phase 7b's library device-seeded over two shards on the card
+    # 9b: phase 7b's library over two shards on the card, seeded there as
+    # the card's default
     ref, r1, r2, n = scale["lib"]
     reset_counts()
     out = os.path.join(work, "out_sharded")
-    with devicepool.pinned([dev, dev]), device_seeding(), quiet(os.path.join(work, "sharded.log")):
+    with devicepool.pinned([dev, dev]), quiet(os.path.join(work, "sharded.log")):
         stats = cli.main(["align", "--engine", "cuda", "--index-mode", "sharded", "--sam", "-t",
                           "2", out, ref, r1, r2])
     launches = {k: fn.launches for k, fn in launchers().items()}
@@ -1443,14 +1512,16 @@ def main() -> int:
         lib = library(work)
         seed_rows, launches, seeding = seeding_parity(dev, lib, work)
         rows.update(seed_rows)
-        main_launches, host_out, host_stages, main_rate = main_path(work, dev, lib)
-        launches.update(main_launches)
+        _, host_out, host_stages, host_rate = host_seeded_path(work, dev, lib)
         byte_identity(work, lib[0])
-        launches.update(device_seeded_path(work, dev, lib, host_out, host_stages))
+        main_launches, _, main_rate = device_seeded_path(work, dev, lib, host_out, host_stages)
+        launches.update(main_launches)
+        seeding_in_turns(work, dev, lib, host_out)
         other_routes(work, dev, lib, host_out)
         work7 = os.path.join(work, "scale")
         os.makedirs(work7)
-        scale = genome_scale(work7, dev, seed_rows, main_rate)
+        scale = genome_scale(work7, dev, seed_rows,
+                             {"host-seeded": host_rate, "device-seeded": main_rate})
         bench_phase(work, dev)
         sharded_rows, sharded_launches = sharded_index(work, dev, scale)
         rows.update(sharded_rows)
@@ -1460,11 +1531,12 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     log("phases: " + ", ".join(f"{n} {s:.1f} s" for n, s in PHASES))
     kernel_rate = seeding["kernel_reads_per_s"]
-    log(f"seeding on {seeding['reads']} reads: collect_seeds_device "
-        f"{seeding['device_reads_per_s']:.0f} reads/s (device time of all its S1/S3 "
+    log(f"seeding on {seeding['reads']} reads: collect_seeds_device_flat (the main path's) "
+        f"{seeding['flat_reads_per_s']:.0f} reads/s (device time of all its S1/S3 "
         f"launches alone: "
-        f"{'not measured' if kernel_rate is None else f'{kernel_rate:.0f} reads/s'}), native "
-        f"collector {seeding['native_reads_per_s']:.0f} reads/s")
+        f"{'not measured' if kernel_rate is None else f'{kernel_rate:.0f} reads/s'}), "
+        f"collect_seeds_device (per-read lists) {seeding['device_reads_per_s']:.0f} reads/s, "
+        f"native collector {seeding['native_reads_per_s']:.0f} reads/s")
     table = {
         "kernels": [
             dict(

@@ -520,6 +520,22 @@ def test_collect_seeds_device_on_card_matches_native(dev, seeding_genome):
 
 
 @pytest.mark.cuda
+def test_engine_on_the_card_seeds_on_it_by_default(dev, seeding_genome, monkeypatch):
+    """With no argument and no ARACHNE_DEVICE_SEEDING, a TorchEngine on the
+    card has the index's rank tables (device seeding, as the reference
+    seeds on its chip); "0" still gives host seeding."""
+    from arachne_tpu_torch.ops.engine import TorchEngine
+    from arachne_tpu_torch.ops.fm_rank import DeviceFMIndex
+
+    idx, _ = seeding_genome
+    monkeypatch.delenv("ARACHNE_DEVICE_SEEDING", raising=False)
+    eng = TorchEngine(idx, ArachneConfig(), device=dev)
+    assert isinstance(eng.dfm, DeviceFMIndex) and eng.dfm.device.type == "cuda"
+    monkeypatch.setenv("ARACHNE_DEVICE_SEEDING", "0")
+    assert TorchEngine(idx, ArachneConfig(), device=dev).dfm is None
+
+
+@pytest.mark.cuda
 def test_batchers_over_two_devices_equal_one(dev):
     """Chunks round-robined over [dev, dev] (ops/devicepool.py, pinned):
     the three batchers give what they give on [dev], and K1-K4 launch."""

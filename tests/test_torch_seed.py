@@ -274,10 +274,15 @@ def test_pass2_runs_every_job_in_one_launch(genome, ref_idx, monkeypatch):
         td, qs, qlens, torch.zeros(R, dtype=torch.int32), torch.ones(R, dtype=torch.int32),
         False, B, B))
     _, jobs = tfs.pass1_seeds(out1, n1, ovf.copy(), len(reads), OPT)
-    assert sorted({len(j) for j in jobs}) == [0, 1, 2, 3]
+    # the jobs as the reference makes them, read by read (fm_seed.py:495-511)
+    split_len = int(OPT.min_seed_len * OPT.split_factor + 0.499)
+    want = [[((qb + qe) >> 1, s + 1) for k, l, s, qb, qe in out1[r, : n1[r]].tolist()
+             if qe - qb >= max(OPT.min_seed_len, split_len) and s <= OPT.split_width]
+            for r in range(len(reads))]
+    assert sorted({len(j) for j in want}) == [0, 1, 2, 3]
     read_of, qs_j, qlens_j, piv, mi = tfs.pass2_inputs(jobs, qs, qlens)
-    assert read_of.tolist() == [r for r, jl in enumerate(jobs) for _ in jl]
-    assert [(int(p), int(m)) for p, m in zip(piv, mi)] == [j for jl in jobs for j in jl]
+    assert read_of.tolist() == [r for r, jl in enumerate(want) for _ in jl]
+    assert [(int(p), int(m)) for p, m in zip(piv, mi)] == [j for jl in want for j in jl]
     assert torch.equal(qs_j, qs[torch.from_numpy(read_of)])
 
     calls = []
