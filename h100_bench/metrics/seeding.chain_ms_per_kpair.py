@@ -1,0 +1,7 @@
+"""TIMERS stage `chain.host`: thread-milliseconds a thousand pairs of the window."""
+
+from h100_bench.readers import stage_ms_per_kpair
+
+
+def read(run):
+    return stage_ms_per_kpair(run, "chain.host")

@@ -1,0 +1,147 @@
+# Frozen copy of arachne_tpu_torch/rfa/engine.py (commit 881fc48), the benchmark's reference: it
+# imports nothing of the program and loads no native library.
+"""Per-barcode RFA engine: the DoRFAForOneBarcode workflow.
+
+Mirrors aligner.go:440-501: candidate generation -> best tagging ->
+[RFA: molecule inference -> greedy optimization -> molecule MAPQ] ->
+duplicate marking -> split reads.  Returns the per-read alignment lists
+ready for BAM emission.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+from ..config import ArachneConfig
+from ..index.fmindex import FMIndex
+from .candidates import FastQRecordView, get_alignments, get_chains
+from .dupmark import mark_duplicates
+from .mapq import estimate_map_qualities
+from .molecules import (
+    infer_molecules,
+    mark_best_alignment_for_read_in_molecule,
+    scrap_molecules,
+    set_molecule_differences,
+    tag_best_alignments,
+)
+from .optimizer import Optimizer, optimize
+from .split import check_split_reads
+from .types import Alignment, Region
+
+
+def worth_running_rfa(
+    reads: List[FastQRecordView], unique_barcode: bool, cfg: ArachneConfig
+) -> bool:
+    """worthRunningRFA (aligner.go:1018-1030).  The reference additionally
+    requires a '-' in the barcode (a 10x GEM-group suffix convention) which
+    silently disables RFA for haplotagging/stLFR/TELLseq inputs
+    (SURVEY.md 2.4); we gate on that only when configured for strict
+    parity."""
+    if not reads or not unique_barcode:
+        return False
+    if cfg.rfa.require_dash_in_barcode:
+        bc = reads[0].barcode
+        bc = bc.decode() if isinstance(bc, bytes) else bc
+        if len(bc.split("-")) < 2:
+            return False
+    if len(reads) < cfg.rfa.rfa_min_read_pairs:
+        return False
+    return True
+
+
+@dataclass
+class BarcodeResult:
+    """Output of one barcode's processing, ready for the BAM writer."""
+
+    alignments: List[List[Alignment]]
+    reads: List[FastQRecordView]
+    attach_bx: bool
+    barcode: str = ""
+    ran_rfa: bool = False
+    n_molecules: int = 0
+
+
+def do_rfa_for_one_barcode(
+    idx: FMIndex,
+    cfg: ArachneConfig,
+    reads: List[FastQRecordView],
+    unique_barcode: bool,
+    centromeres: Optional[Dict[str, Region]] = None,
+    extender=None,
+) -> BarcodeResult:
+    """DoRFAForOneBarcode (aligner.go:440-501)."""
+    engine = None
+    if extender is not None and hasattr(extender, "align_pairs"):
+        engine = extender  # a TpuEngine: full batched path
+        extender = None
+    barcode_chains, barcode = get_chains(
+        idx, cfg, reads, extender=extender, engine=engine
+    )
+    alignments, stashed = get_alignments(idx, cfg, barcode_chains, engine=engine)
+    return _finish_barcode(
+        idx, cfg, reads, unique_barcode, alignments, stashed, barcode, centromeres
+    )
+
+
+def _finish_barcode(
+    idx: FMIndex,
+    cfg: ArachneConfig,
+    reads: List[FastQRecordView],
+    unique_barcode: bool,
+    alignments,
+    stashed,
+    barcode: str,
+    centromeres: Optional[Dict[str, Region]] = None,
+) -> BarcodeResult:
+    """The RFA/MAPQ/dup/split tail of DoRFAForOneBarcode."""
+    centromeres = centromeres or {}
+    improper = cfg.rfa.improper_pair_penalty
+    run_rfa = worth_running_rfa(reads, unique_barcode, cfg)
+
+    positions = tag_best_alignments(alignments, improper)
+
+    if not run_rfa:
+        estimate_map_qualities(
+            alignments, None, improper, centromeres, cfg.rfa.reference_length
+        )
+        mark_duplicates(alignments)
+        check_split_reads(stashed, centromeres, improper)
+        return BarcodeResult(
+            alignments=alignments,
+            reads=reads,
+            attach_bx=unique_barcode,
+            barcode=barcode,
+            ran_rfa=False,
+        )
+
+    molecules = infer_molecules(positions)
+    mark_best_alignment_for_read_in_molecule(molecules, improper)
+    molecules = scrap_molecules(molecules)
+    set_molecule_differences(molecules, False)
+    model = Optimizer(
+        candidate_molecules=molecules,
+        alignments=alignments,
+        log_unpaired_probability=improper,
+        barcode=barcode,
+    )
+    model = optimize(
+        model,
+        cfg.rfa.anneal_start_temp,
+        cfg.rfa.anneal_temp_steps,
+        cfg.rfa.anneal_steps_per_temp_factor * len(molecules),
+    )
+    estimate_map_qualities(
+        model.alignments, model.candidate_molecules, improper, centromeres,
+        cfg.rfa.reference_length,
+    )
+    mark_duplicates(alignments)
+    check_split_reads(stashed, centromeres, improper)
+    return BarcodeResult(
+        alignments=model.alignments,
+        reads=reads,
+        attach_bx=True,
+        barcode=barcode,
+        ran_rfa=True,
+        n_molecules=len(molecules),
+    )
