@@ -256,15 +256,18 @@ def seed_kernel_resources(log: str) -> dict:
     """{kernel: ptxas's registers and spill line} of the seeding kernels
     (S1, S3, K5) in an nvcc log built with -Xptxas -v, each instantiation
     named by its row type and its table (flat, or sharded across cards;
-    a build that predates the sharded table has only the flat one)."""
+    a build that predates the sharded table has only the flat one), and
+    ", counted" for S1's and S3's forms that count occ4 rows (mangled
+    ``Lb1E``; a build before the counters has none)."""
     out, entry = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             # the mangled template argument: i for int, x for long long
             m = re.search(r"(smem_pass_kernel|pass3_kernel|rank_(?:group_)?kernel)I([ix])", line)
             table = "sharded" if "ArachneShardedTable" in line else "flat"
-            entry = (f"{m.group(1)}<{'int' if m.group(2) == 'i' else 'long long'}, {table}>"
-                     if m else None)
+            counted = ", counted" if "Lb1E" in line else ""
+            entry = (f"{m.group(1)}<{'int' if m.group(2) == 'i' else 'long long'}, {table}"
+                     f"{counted}>" if m else None)
         elif entry and ("registers" in line or "spill" in line):
             out.setdefault(entry, []).append(line.split(":", 1)[-1].strip())
     return out

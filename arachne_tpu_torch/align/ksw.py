@@ -47,11 +47,16 @@ def extend2(
     end_bonus: int,
     zdrop: int,
     h0: int,
+    stats: Optional[dict] = None,
 ) -> Tuple[int, int, int, int, int, int]:
     """ksw_extend2: returns (score, qle, tle, gtle, gscore, max_off).
 
     Exact port of ksw.c:380-479 with the inner row vectorized (the F
     dependency becomes a running-max prefix scan; see module docstring).
+    With a dict ``stats``, adds to ``stats["cells"]`` the cells of the band
+    of each row it reaches, taken from i - w (as K1 and its plain version
+    take it, without the leading zero cells ksw.c's ``beg`` skips) up to
+    the adaptive end.
     """
     qlen, tlen = len(query), len(target)
     assert h0 > 0
@@ -88,6 +93,8 @@ def extend2(
         h1_init = h0 - (o_del + e_del * (i + 1)) if beg == 0 else 0
         if h1_init < 0:
             h1_init = 0
+        if stats is not None:
+            stats["cells"] = stats.get("cells", 0) + max(end - max(i - w, 0), 0)
         q = qprof[target[i]]
         sl = slice(beg, end)
         Hdiag = ehh[sl].copy()

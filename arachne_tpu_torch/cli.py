@@ -57,6 +57,8 @@ from .config import ArachneConfig, OutputOptions, PipelineOptions, RFAOptions
 from .runtime.timers import TIMERS
 
 ENGINES = {"cuda": "cuda", "torch-cpu": "cpu", "oracle": None}
+# barcode sets the writer thread's queue holds before the producer blocks
+EMIT_QUEUE_ITEMS = 64
 
 
 def load_centromeres(path):
@@ -103,7 +105,9 @@ def load_or_build_index(reference: str):
 def start_profiler(device):
     """A torch.profiler run over the align loop (the counterpart of the
     reference's jax.profiler.start_trace): host activity, and the card's
-    kernels when the engine runs on one."""
+    kernels when the engine runs on one.  The program's own spans
+    (runtime/timers.py) are traced with it and written beside the
+    profiler's trace, on its clock (``write_spans``)."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -112,6 +116,26 @@ def start_profiler(device):
     prof = profile(activities=activities)
     prof.start()
     return prof
+
+
+def profiler_running() -> bool:
+    """Whether a torch.profiler session is recording in this process: this
+    run's (--profile-dir) or one its caller opened around it (none where
+    torch was never imported)."""
+    torch = sys.modules.get("torch")
+    return torch is not None and bool(torch.autograd._profiler_enabled())
+
+
+def write_spans(profile_dir: str, sfx: str) -> None:
+    """``arachne{sfx}.spans.json`` beside the profiler's
+    ``arachne{sfx}.trace.json``: the program's spans and counters as Chrome
+    trace events, their times after the trace's ``baseTimeNanoseconds``
+    (read from its head; 0 where it has none) so that one viewer lines the
+    host's threads up with the card's kernels."""
+    with open(os.path.join(profile_dir, f"arachne{sfx}.trace.json"), "rb") as fh:
+        m = re.search(rb'"baseTimeNanoseconds":\s*(\d+)', fh.read(1 << 16))
+    TIMERS.write_chrome_trace(os.path.join(profile_dir, f"arachne{sfx}.spans.json"),
+                              int(m.group(1)) if m else 0)
 
 
 def run_align(args):
@@ -200,6 +224,11 @@ def run_align(args):
         print(f"Resuming: skipping {stream.skip} completed barcode sets")
     t0 = time.time()
     prof = start_profiler(device) if args.profile_dir else None
+    # the program's spans come with any profiler over the run, its own or a
+    # caller's (runtime/timers.py); a trace the caller started is left on
+    traced = (prof is not None or profiler_running()) and not TIMERS.tracing
+    if traced:
+        TIMERS.trace(True)
     crash_after = int(os.environ.get("ARACHNE_CRASH_AFTER_SETS", 0))
 
     def emit(res, n_records, unique):
@@ -221,12 +250,15 @@ def run_align(args):
     # BamThread): queue order == emission order, so output stays
     # byte-deterministic; mark_done runs here AFTER the dump, so manifests
     # never lead the data
-    emit_q: queue.Queue = queue.Queue(maxsize=64)
+    emit_q: queue.Queue = queue.Queue(maxsize=EMIT_QUEUE_ITEMS)
     writer_exc: list = []
 
     def _writer_loop():
         while True:
-            item = emit_q.get()
+            with TIMERS.span("writer.idle"):
+                item = emit_q.get()
+            if TIMERS.tracing:
+                TIMERS.count("emit_q.depth", emit_q.qsize())
             if item is None:
                 return
             if writer_exc:
@@ -242,11 +274,19 @@ def run_align(args):
     def emit_async(res, n_records, unique):
         if writer_exc:
             raise writer_exc[0]
-        emit_q.put((res, n_records, unique))
+        item = (res, n_records, unique)
+        try:
+            emit_q.put_nowait(item)
+        except queue.Full:
+            # the writer sets the pace: the time blocked here is its backpressure
+            with TIMERS.span("driver.emit_blocked"):
+                emit_q.put(item)
+        if TIMERS.tracing:
+            TIMERS.count("emit_q.depth", emit_q.qsize())
 
     def consume():
         if device is None:
-            for records, unique in stream:
+            for records, unique in TIMERS.iter_spans("driver.parse", stream):
                 res = do_rfa_for_one_barcode(
                     idx, cfg, records, unique, centromeres, extender=None
                 )
@@ -256,39 +296,44 @@ def run_align(args):
         # work of batch N+1; results are consumed in order
         tls = threading.local()
 
-        def run_batch(batch):
+        def run_batch(sb, batch):
             eng = getattr(tls, "engine", None)
             if eng is None:
                 eng = TorchEngine(idx, cfg, device)
                 tls.engine = eng
-            return process_barcodes(idx, cfg, batch, eng, centromeres)
+            with TIMERS.in_superbatch(sb):
+                return process_barcodes(idx, cfg, batch, eng, centromeres)
 
         batch_limit = (
             int(os.environ.get("ARACHNE_TEST_READS_PER_BATCH", 0)) or cfg.pipeline.reads_per_batch
         )
 
         def superbatches():
-            pending, pending_pairs = [], 0
-            for records, unique in stream:
+            """(id, barcode sets) in input order, the ids from 0."""
+            pending, pending_pairs, sb = [], 0, 0
+            for records, unique in TIMERS.iter_spans("driver.parse", stream):
                 pending.append((records, unique))
                 pending_pairs += len(records)
                 if pending_pairs >= batch_limit:
-                    yield pending
-                    pending, pending_pairs = [], 0
+                    yield sb, pending
+                    pending, pending_pairs, sb = [], 0, sb + 1
             if pending:
-                yield pending
+                yield sb, pending
+
+        def emit_batch(fut, b):
+            with TIMERS.span("driver.wait"):
+                results = fut.result()
+            for res, (recs, uniq) in zip(results, b):
+                emit_async(res, len(recs), uniq)
 
         with ThreadPoolExecutor(max_workers=cfg.pipeline.num_workers) as pool:
             futures = []
-            for batch in superbatches():
-                futures.append((pool.submit(run_batch, batch), batch))
+            for sb, batch in superbatches():
+                futures.append((pool.submit(run_batch, sb, batch), batch))
                 while len(futures) > cfg.pipeline.num_workers:
-                    fut, b = futures.pop(0)
-                    for res, (recs, uniq) in zip(fut.result(), b):
-                        emit_async(res, len(recs), uniq)
+                    emit_batch(*futures.pop(0))
             for fut, b in futures:
-                for res, (recs, uniq) in zip(fut.result(), b):
-                    emit_async(res, len(recs), uniq)
+                emit_batch(fut, b)
 
     try:
         consume()
@@ -296,6 +341,8 @@ def run_align(args):
         # always deliver the sentinel, or the writer would block forever
         emit_q.put(None)
         writer_thread.join()
+        if traced:
+            TIMERS.trace(False)
     if writer_exc:
         raise writer_exc[0]
     # final manifest first (it flushes the writers for their offsets)
@@ -305,6 +352,7 @@ def run_align(args):
         prof.stop()
         os.makedirs(args.profile_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.profile_dir, f"arachne{host_sfx}.trace.json"))
+        write_spans(args.profile_dir, host_sfx)
     dt = time.time() - t0
     stats.finish(dt)
     global_stats = stats
@@ -431,7 +479,8 @@ def main(argv=None):
     al.add_argument("--stats-json", default="", help="write run statistics JSON here")
     al.add_argument(
         "--profile-dir", default="",
-        help="write a torch.profiler Chrome trace of the align loop into this directory",
+        help="write a torch.profiler Chrome trace of the align loop into this directory, "
+        "and the program's own spans beside it (arachne.spans.json)",
     )
     al.add_argument("output")
     al.add_argument("reference")

@@ -27,6 +27,7 @@ from typing import Dict, List, Optional
 import torch
 
 from ..device import nvcc_path
+from ..runtime.timers import TIMERS
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -52,24 +53,26 @@ _SIGNATURES = {
     # table, L2, primary, seq_len, wide, ks, n, out, stream
     "arachne_rank": [_P] * 2 + [_LL, _LL, _I, _P, _LL, _P, _P],
     # table, L2, primary, seq_len, wide, qs, qlens, pivots0, min_intvs,
-    # single_sweep, R, L, MAXC, MAXS, ws, out, out_n, overflow, stream
-    "arachne_smem_pass": [_P] * 2 + [_LL, _LL, _I] + [_P] * 4 + [_I] * 5 + [_P] * 5,
+    # single_sweep, R, L, MAXC, MAXS, ws, out, out_n, overflow, rows (each
+    # read's occ4 rows, or NULL), stream
+    "arachne_smem_pass": [_P] * 2 + [_LL, _LL, _I] + [_P] * 4 + [_I] * 5 + [_P] * 6,
     # table, L2, primary, seq_len, wide, qs, qlens, min_seed_len, max_intv,
-    # R, L, MAXS, out, out_n, overflow, stream
-    "arachne_seed_pass3": [_P] * 2 + [_LL, _LL, _I, _P, _P, _LL, _LL] + [_I] * 3 + [_P] * 4,
+    # R, L, MAXS, out, out_n, overflow, rows, stream
+    "arachne_seed_pass3": [_P] * 2 + [_LL, _LL, _I, _P, _P, _LL, _LL] + [_I] * 3 + [_P] * 5,
     # the same three on a table split across cards: its shards' addresses
     # (an array on the launching card) and the records a shard holds in
     # place of the table
     "arachne_rank_sharded": [_P, _LL, _P, _LL, _LL, _I, _P, _LL, _P, _P],
-    "arachne_smem_pass_sharded": [_P, _LL, _P, _LL, _LL, _I] + [_P] * 4 + [_I] * 5 + [_P] * 5,
+    "arachne_smem_pass_sharded": [_P, _LL, _P, _LL, _LL, _I] + [_P] * 4 + [_I] * 5 + [_P] * 6,
     "arachne_seed_pass3_sharded": [_P, _LL, _P, _LL, _LL, _I, _P, _P, _LL, _LL] + [_I] * 3
-    + [_P] * 4,
+    + [_P] * 5,
     # device, peer
     "arachne_enable_peer_access": [_I, _I],
     # qs, ts, qlens, tlens, ws, h0s, mat, B, qmax, tmax,
-    # o_del, e_del, o_ins, e_ins, zdrop, out, stream
-    "arachne_extend": [_P] * 7 + [_I] * 8 + [_P, _P],
-    # the same with int16 DP state
+    # o_del, e_del, o_ins, e_ins, zdrop, out, cells (each problem's DP
+    # cells, or NULL), stream
+    "arachne_extend": [_P] * 7 + [_I] * 8 + [_P] * 3,
+    # the same with int16 DP state, without cells
     "arachne_extend16": [_P] * 7 + [_I] * 8 + [_P, _P],
     # qs, ts, qlens, tlens, endscs, minscs, mat, B, qmax, tmax,
     # o_del, e_del, o_ins, e_ins, max_mat, out, stream
@@ -194,13 +197,21 @@ def routed_to(lib: ctypes.CDLL):
 _count_lock = threading.Lock()
 
 
-def launch(wrapper, entry: str, device: torch.device, *args) -> None:
+def launch(wrapper, entry: str, device: torch.device, *args, problems: Optional[int] = None
+           ) -> None:
     """Call the C entry point ``entry`` with ``args`` and the device's
     current stream; raise on a nonzero ``cudaGetLastError()``, else add one
-    to ``wrapper.launches`` (worker threads launch concurrently)."""
+    to ``wrapper.launches`` (worker threads launch concurrently).  With the
+    trace on, the call is a span named ``entry`` (runtime/timers.py
+    ``TIMERS.launch``) with the device and the launch's ``problems``."""
     lib = get_lib()
     with torch.cuda.device(device):
-        rc = getattr(lib, entry)(*args, torch.cuda.current_stream(device).cuda_stream)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        if TIMERS.tracing:
+            with TIMERS.launch(entry, device=str(device), problems=problems):
+                rc = getattr(lib, entry)(*args, stream)
+        else:
+            rc = getattr(lib, entry)(*args, stream)
     if rc != 0:
         msg = lib.arachne_error_string(rc).decode()
         raise RuntimeError(f"{wrapper.__name__}: CUDA error {rc} ({msg})")

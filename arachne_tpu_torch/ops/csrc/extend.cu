@@ -67,14 +67,14 @@
 
 namespace {
 
-template <int S>
+template <int S, bool COUNT>
 __global__ void __launch_bounds__(ARACHNE_WARPS * 32) extend_kernel(
     const int8_t* __restrict__ qs, const int8_t* __restrict__ ts,
     const int* __restrict__ qlens, const int* __restrict__ tlens,
     const int* __restrict__ ws, const int* __restrict__ h0s,
     const int* __restrict__ mat_g, int B, int qmax, int tmax,
     int o_del, int e_del, int o_ins, int e_ins, int zdrop,
-    int* __restrict__ out)
+    int* __restrict__ out, int* __restrict__ cells)
 {
     __shared__ int mat[25];
     load_matrix(mat_g, mat);
@@ -100,6 +100,10 @@ __global__ void __launch_bounds__(ARACHNE_WARPS * 32) extend_kernel(
     }
     int end = qlen, maxv = h0, max_i = -1, max_j = -1, max_ie = -1;
     int gscore = -1, max_off = 0;
+    // with COUNT, the DP cells of the rows reached (extend_batch_torch's
+    // stats["cells"]); the kernel without it is the one the main path runs
+    // untraced, untouched by the counter
+    int n_cells = 0;
 
     const int8_t* trow = ts + (size_t)b * tmax;
     int tcodes = 4;
@@ -108,6 +112,7 @@ __global__ void __launch_bounds__(ARACHNE_WARPS * 32) extend_kernel(
         // adaptive end (ksw.c:417-418,468-469)
         const int end_used = min(min(end, i + w + 1), qlen);
         const int lo = max(i - w, 0);
+        if constexpr (COUNT) n_cells += max(end_used - lo, 0);
         const int h1_init = (i - w <= 0) ? max(h0 - (o_del + e_del * (i + 1)), 0) : 0;
         // H(i-1, -1): h0 on the first row, else the first-column boundary
         const int bound_prev = i == 0
@@ -201,6 +206,7 @@ __global__ void __launch_bounds__(ARACHNE_WARPS * 32) extend_kernel(
         out[3 * B + b] = max_ie + 1;
         out[4 * B + b] = gscore;
         out[5 * B + b] = max_off;
+        if constexpr (COUNT) cells[b] = n_cells;
     }
 }
 
@@ -400,13 +406,15 @@ template <int S>
 int launch_extend(
     const void* qs, const void* ts, const void* qlens, const void* tlens,
     const void* ws, const void* h0s, const void* mat, int B, int qmax, int tmax,
-    int o_del, int e_del, int o_ins, int e_ins, int zdrop, void* out, cudaStream_t stream)
+    int o_del, int e_del, int o_ins, int e_ins, int zdrop, void* out, void* cells,
+    cudaStream_t stream)
 {
     const int blocks = (B + ARACHNE_WARPS - 1) / ARACHNE_WARPS;
-    extend_kernel<S><<<blocks, ARACHNE_WARPS * 32, 0, stream>>>(
+    const auto kernel = cells ? extend_kernel<S, true> : extend_kernel<S, false>;
+    kernel<<<blocks, ARACHNE_WARPS * 32, 0, stream>>>(
         (const int8_t*)qs, (const int8_t*)ts, (const int*)qlens, (const int*)tlens,
         (const int*)ws, (const int*)h0s, (const int*)mat, B, qmax, tmax,
-        o_del, e_del, o_ins, e_ins, zdrop, (int*)out);
+        o_del, e_del, o_ins, e_ins, zdrop, (int*)out, (int*)cells);
     return (int)cudaGetLastError();
 }
 
@@ -426,15 +434,20 @@ int launch_extend16(
 
 }  // namespace
 
+// cells: NULL, or (B,) int32 that receives each problem's DP cells (the
+// count extend_batch_torch's stats take: the in-band cells of every row the
+// problem reaches before it dies or ends)
 extern "C" int arachne_extend(
     const void* qs, const void* ts, const void* qlens, const void* tlens,
     const void* ws, const void* h0s, const void* mat, int B, int qmax, int tmax,
-    int o_del, int e_del, int o_ins, int e_ins, int zdrop, void* out, void* stream)
+    int o_del, int e_del, int o_ins, int e_ins, int zdrop, void* out, void* cells,
+    void* stream)
 {
     if (B <= 0) return 0;
     ARACHNE_STRIP_DISPATCH(arachne_strip(qmax), launch_extend,
                            qs, ts, qlens, tlens, ws, h0s, mat, B, qmax, tmax,
-                           o_del, e_del, o_ins, e_ins, zdrop, out, (cudaStream_t)stream);
+                           o_del, e_del, o_ins, e_ins, zdrop, out, cells,
+                           (cudaStream_t)stream);
 }
 
 // K1 with int16 DP state; the caller has proven the range

@@ -195,14 +195,15 @@ __device__ __forceinline__ int code_at(const int8_t* q, T qlen, T x) {
     return (x >= 0 && x < qlen) ? (int)q[x] : 4;
 }
 
-template <typename T, int G, typename Table>
+template <typename T, int G, typename Table, bool COUNT>
 __global__ void __launch_bounds__(SEED_THREADS) smem_pass_kernel(
     const Table table, const T* __restrict__ L2, long long primary,
     long long seq_len,
     const int8_t* __restrict__ qs, const int* __restrict__ qlens,
     const int* __restrict__ pivots0, const int* __restrict__ min_intvs,
     int single_sweep, int R, int L, int MAXC, int MAXS, T* __restrict__ ws,
-    T* __restrict__ out, T* __restrict__ out_n, bool* __restrict__ overflow)
+    T* __restrict__ out, T* __restrict__ out_n, bool* __restrict__ overflow,
+    T* __restrict__ rows)
 {
     const int r = blockIdx.x * blockDim.x + threadIdx.x;
     if (r >= R) return;
@@ -223,6 +224,10 @@ __global__ void __launch_bounds__(SEED_THREADS) smem_pass_kernel(
     // this sweep's SMEMs, qb descending
     const Slots<T, 5> mem{ws + (size_t)R * 8 * MAXC + r, (size_t)R};
     int curr_n = 0, prev_n = 0, mem_n = 0, n_out = 0;
+    // with COUNT, the occ4 rows the read needs (smem_pass_torch's
+    // stats["rank_rows"]); the kernel without it is the one the main path
+    // runs untraced, untouched by the counter
+    int n_rows = 0;
     bool prev_rev = false, ovf = false;
     int phase = PH_PIVOT;
     T x = pivots0[r];
@@ -341,6 +346,8 @@ __global__ void __launch_bounds__(SEED_THREADS) smem_pass_kernel(
             T n0 = 0, n1 = 0, ns = 0;
             fm.finish(st, g * CH, fwd ? it[1] : it[0], x2, fwd ? it[0] : it[1], !fwd, c,
                       n0, n1, ns);
+            if constexpr (COUNT)   // an extend that counts (not a dropped copy)
+                n_rows += c_ok_now ? 2 : 0;
             if (fwd) {
                 // ---- the forward step
                 if (terminal) {
@@ -417,15 +424,17 @@ __global__ void __launch_bounds__(SEED_THREADS) smem_pass_kernel(
     }
     out_n[r] = (T)n_out;
     overflow[r] = ovf;
+    if constexpr (COUNT) rows[r] = (T)n_rows;
 }
 
-template <typename T, typename Table>
+template <typename T, typename Table, bool COUNT>
 __global__ void __launch_bounds__(SEED_THREADS) pass3_kernel(
     const Table table, const T* __restrict__ L2, long long primary,
     long long seq_len,
     const int8_t* __restrict__ qs, const int* __restrict__ qlens,
     long long min_seed_len, long long max_intv, int R, int L, int MAXS,
-    T* __restrict__ out, T* __restrict__ out_n, bool* __restrict__ overflow)
+    T* __restrict__ out, T* __restrict__ out_n, bool* __restrict__ overflow,
+    T* __restrict__ rows)
 {
     const int r = blockIdx.x * blockDim.x + threadIdx.x;
     if (r >= R) return;
@@ -439,7 +448,7 @@ __global__ void __launch_bounds__(SEED_THREADS) pass3_kernel(
     T x = 0, i = 0;
     T ik[4] = {0, 0, 0, 0};   // k, l, s (and an unused info slot)
     bool scanning = false, done = false, ovf = false;
-    int n_out = 0;
+    int n_out = 0, n_rows = 0;   // with COUNT: pass3_torch's stats["rank_rows"]
     const int cap = 8 * L + 64;
     for (int step = 0; step < cap && !done; ++step) {
         // idle: look for the next pivot
@@ -465,6 +474,7 @@ __global__ void __launch_bounds__(SEED_THREADS) pass3_kernel(
             const bool hit_n = !at_end && ci >= 4;
             bool emit = false;
             if (!at_end && !hit_n) {
+                if constexpr (COUNT) n_rows += 2;
                 T n0, n1, ns;
                 fm.finish(st, 0, ik[1], ik[2], ik[0], false, 3 - ci, n0, n1, ns);
                 emit = ns < (T)max_intv && i - x >= (T)min_seed_len;
@@ -490,6 +500,7 @@ __global__ void __launch_bounds__(SEED_THREADS) pass3_kernel(
     }
     out_n[r] = (T)n_out;
     overflow[r] = ovf;
+    if constexpr (COUNT) rows[r] = (T)n_rows;
 }
 
 // Launch kernel k (S1 or S3) with the stage it needs: ``chunks`` 16-byte
@@ -511,28 +522,32 @@ template <typename T, typename Table>
 int launch_smem_pass(Table table, const void* L2, long long primary, long long seq_len,
                      const void* qs, const void* qlens, const void* pivots0,
                      const void* min_intvs, int single_sweep, int R, int L, int MAXC, int MAXS,
-                     void* ws, void* out, void* out_n, void* overflow, void* stream)
+                     void* ws, void* out, void* out_n, void* overflow, void* rows,
+                     void* stream)
 {
     if (R <= 0) return 0;
     if (MAXC < 1 || MAXS < 1) return (int)cudaErrorInvalidValue;
     return launch_staged(
-        smem_pass_kernel<T, SEED_GROUP, Table>, stage_chunks<T, SEED_GROUP>(), R,
+        rows ? smem_pass_kernel<T, SEED_GROUP, Table, true>
+             : smem_pass_kernel<T, SEED_GROUP, Table, false>, stage_chunks<T, SEED_GROUP>(), R,
         (cudaStream_t)stream, table, (const T*)L2, primary, seq_len, (const int8_t*)qs,
         (const int*)qlens, (const int*)pivots0, (const int*)min_intvs, single_sweep, R, L, MAXC,
-        MAXS, (T*)ws, (T*)out, (T*)out_n, (bool*)overflow);
+        MAXS, (T*)ws, (T*)out, (T*)out_n, (bool*)overflow, (T*)rows);
 }
 
 template <typename T, typename Table>
 int launch_pass3(Table table, const void* L2, long long primary, long long seq_len,
                  const void* qs, const void* qlens, long long min_seed_len, long long max_intv,
-                 int R, int L, int MAXS, void* out, void* out_n, void* overflow, void* stream)
+                 int R, int L, int MAXS, void* out, void* out_n, void* overflow, void* rows,
+                 void* stream)
 {
     if (R <= 0) return 0;
     if (MAXS < 1) return (int)cudaErrorInvalidValue;
     return launch_staged(
-        pass3_kernel<T, Table>, 2 * arachne_occ4_chunks<T>(), R, (cudaStream_t)stream, table,
+        rows ? pass3_kernel<T, Table, true> : pass3_kernel<T, Table, false>,
+        2 * arachne_occ4_chunks<T>(), R, (cudaStream_t)stream, table,
         (const T*)L2, primary, seq_len, (const int8_t*)qs, (const int*)qlens, min_seed_len,
-        max_intv, R, L, MAXS, (T*)out, (T*)out_n, (bool*)overflow);
+        max_intv, R, L, MAXS, (T*)out, (T*)out_n, (bool*)overflow, (T*)rows);
 }
 
 }  // namespace
@@ -540,22 +555,25 @@ int launch_pass3(Table table, const void* L2, long long primary, long long seq_l
 // qs (R, L) int8 codes; qlens, pivots0, min_intvs (R,) int32; ws a
 // workspace of R * (8 * MAXC + 5 * MAXS) elements, out (R, MAXS, 5) and
 // out_n (R,), all in the tables' row type (int64 when wide != 0); overflow
-// (R,) bool.  out must be zeroed: only the SMEMs found are written.  table
-// is the record table and must start on 64 bytes (the launchers check it).
+// (R,) bool; rows NULL, or (R,) in the row type, which receives each read's
+// occ4 rows (the count smem_pass_torch's and pass3_torch's stats take).
+// out must be zeroed: only the SMEMs found are written.  table is the
+// record table and must start on 64 bytes (the launchers check it).
 extern "C" int arachne_smem_pass(
     const void* table, const void* L2, long long primary, long long seq_len, int wide,
     const void* qs, const void* qlens,
     const void* pivots0, const void* min_intvs, int single_sweep, int R, int L,
-    int MAXC, int MAXS, void* ws, void* out, void* out_n, void* overflow, void* stream)
+    int MAXC, int MAXS, void* ws, void* out, void* out_n, void* overflow, void* rows,
+    void* stream)
 {
     const ArachneFlatTable t{(const uint4*)table};
     if (wide)
         return launch_smem_pass<long long>(t, L2, primary, seq_len, qs, qlens, pivots0,
                                            min_intvs, single_sweep, R, L, MAXC, MAXS, ws, out,
-                                           out_n, overflow, stream);
+                                           out_n, overflow, rows, stream);
     return launch_smem_pass<int>(t, L2, primary, seq_len, qs, qlens, pivots0, min_intvs,
                                  single_sweep, R, L, MAXC, MAXS, ws, out, out_n, overflow,
-                                 stream);
+                                 rows, stream);
 }
 
 // arachne_smem_pass on a table split across cards: shards and per as
@@ -564,44 +582,46 @@ extern "C" int arachne_smem_pass_sharded(
     const void* shards, long long per, const void* L2, long long primary, long long seq_len,
     int wide, const void* qs, const void* qlens,
     const void* pivots0, const void* min_intvs, int single_sweep, int R, int L,
-    int MAXC, int MAXS, void* ws, void* out, void* out_n, void* overflow, void* stream)
+    int MAXC, int MAXS, void* ws, void* out, void* out_n, void* overflow, void* rows,
+    void* stream)
 {
     const auto s = (const uint4* const*)shards;
     if (wide)
         return launch_smem_pass<long long>(ArachneShardedTable<long long>{s, per}, L2, primary,
                                            seq_len, qs, qlens, pivots0, min_intvs, single_sweep,
-                                           R, L, MAXC, MAXS, ws, out, out_n, overflow, stream);
+                                           R, L, MAXC, MAXS, ws, out, out_n, overflow, rows,
+                                           stream);
     return launch_smem_pass<int>(ArachneShardedTable<int>{s, (int)per}, L2, primary, seq_len,
                                  qs, qlens, pivots0, min_intvs, single_sweep, R, L, MAXC, MAXS,
-                                 ws, out, out_n, overflow, stream);
+                                 ws, out, out_n, overflow, rows, stream);
 }
 
 extern "C" int arachne_seed_pass3(
     const void* table, const void* L2, long long primary, long long seq_len, int wide,
     const void* qs, const void* qlens,
     long long min_seed_len, long long max_intv, int R, int L, int MAXS,
-    void* out, void* out_n, void* overflow, void* stream)
+    void* out, void* out_n, void* overflow, void* rows, void* stream)
 {
     const ArachneFlatTable t{(const uint4*)table};
     if (wide)
         return launch_pass3<long long>(t, L2, primary, seq_len, qs, qlens, min_seed_len,
-                                       max_intv, R, L, MAXS, out, out_n, overflow, stream);
+                                       max_intv, R, L, MAXS, out, out_n, overflow, rows, stream);
     return launch_pass3<int>(t, L2, primary, seq_len, qs, qlens, min_seed_len, max_intv, R, L,
-                             MAXS, out, out_n, overflow, stream);
+                             MAXS, out, out_n, overflow, rows, stream);
 }
 
 extern "C" int arachne_seed_pass3_sharded(
     const void* shards, long long per, const void* L2, long long primary, long long seq_len,
     int wide, const void* qs, const void* qlens,
     long long min_seed_len, long long max_intv, int R, int L, int MAXS,
-    void* out, void* out_n, void* overflow, void* stream)
+    void* out, void* out_n, void* overflow, void* rows, void* stream)
 {
     const auto s = (const uint4* const*)shards;
     if (wide)
         return launch_pass3<long long>(ArachneShardedTable<long long>{s, per}, L2, primary,
                                        seq_len, qs, qlens, min_seed_len, max_intv, R, L, MAXS,
-                                       out, out_n, overflow, stream);
+                                       out, out_n, overflow, rows, stream);
     return launch_pass3<int>(ArachneShardedTable<int>{s, (int)per}, L2, primary, seq_len, qs,
                              qlens, min_seed_len, max_intv, R, L, MAXS, out, out_n, overflow,
-                             stream);
+                             rows, stream);
 }

@@ -15,10 +15,12 @@ from . import build
 
 
 def extend_cuda(qs, ts, qlens, tlens, ws, h0s, mat, *, o_del, e_del, o_ins, e_ins, zdrop,
-                wide_state=True, max_h0=None):
+                wide_state=True, max_h0=None, count_cells=False):
     """Launch K1 on CUDA tensors; returns (6, B) int32
-    (maxv, qle, tle, gtle, gscore, max_off).  ``wide_state=False`` launches
-    the int16 kernel, counted in ``extend16_cuda.launches``, once
+    (maxv, qle, tle, gtle, gscore, max_off), with ``count_cells`` (the
+    int32 kernel only) a seventh row: each problem's DP cells, as
+    ``extend_batch_torch(count_cells=True)`` counts them.
+    ``wide_state=False`` launches the int16 kernel, counted in ``extend16_cuda.launches``, once
     ``sw_extend.require_int16_state`` has proven its range from ``max_h0``
     (the caller's bound on every h0; without it the h0s are read, a
     synchronisation); it raises ValueError where the range is not proven,
@@ -32,15 +34,21 @@ def extend_cuda(qs, ts, qlens, tlens, ws, h0s, mat, *, o_del, e_del, o_ins, e_in
 
         require_int16_state("extend_cuda", h0s, max_h0, qmax, mat, o_del=o_del, e_del=e_del,
                             o_ins=o_ins, e_ins=e_ins)
-    out = torch.empty((6, B), dtype=torch.int32, device=dev)
+    if count_cells and not wide_state:
+        raise ValueError("extend_cuda: the int16 kernel counts no cells")
+    out = torch.empty((6 + bool(count_cells), B), dtype=torch.int32, device=dev)
     if B:
-        wrapper, entry = (extend_cuda, "arachne_extend") if wide_state else (
-            extend16_cuda, "arachne_extend16")
+        if wide_state:
+            # the cells go to the seventh row, or nowhere (NULL)
+            wrapper, entry = extend_cuda, "arachne_extend"
+            cells = (out[6].data_ptr() if count_cells else None,)
+        else:
+            wrapper, entry, cells = extend16_cuda, "arachne_extend16", ()
         build.launch(
             wrapper, entry, dev,
             qs.data_ptr(), ts.data_ptr(), qlens.data_ptr(), tlens.data_ptr(),
             ws.data_ptr(), h0s.data_ptr(), mat.data_ptr(), B, qmax, tmax,
-            o_del, e_del, o_ins, e_ins, zdrop, out.data_ptr(),
+            o_del, e_del, o_ins, e_ins, zdrop, out.data_ptr(), *cells, problems=B,
         )
     return out
 

@@ -27,7 +27,7 @@ def _launch_global(wrapper, qs, ts, qlens, tlens, ws, mat, gaps, want_z):
             qs.data_ptr(), ts.data_ptr(), qlens.data_ptr(), tlens.data_ptr(),
             ws.data_ptr(), mat.data_ptr(), B, qmax, tmax,
             gaps["o_del"], gaps["e_del"], gaps["o_ins"], gaps["e_ins"],
-            score.data_ptr(), None if z is None else z.data_ptr(),
+            score.data_ptr(), None if z is None else z.data_ptr(), problems=B,
         )
     return score, z
 
@@ -60,6 +60,7 @@ def traceback_cuda(z, qlens, tlens, ws, *, max_steps: int):
             traceback_cuda, "arachne_traceback", dev,
             z.data_ptr(), qlens.data_ptr(), tlens.data_ptr(), ws.data_ptr(),
             B, qmax, tmax, max_steps, ops.data_ptr(), fi.data_ptr(), fk.data_ptr(),
+            problems=B,
         )
     return ops, fi, fk
 

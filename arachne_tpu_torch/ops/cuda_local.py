@@ -25,7 +25,7 @@ def local_cuda(qs, ts, qlens, tlens, endscs, minscs, mat, *, o_del, e_del, o_ins
             local_cuda, "arachne_local", dev,
             qs.data_ptr(), ts.data_ptr(), qlens.data_ptr(), tlens.data_ptr(),
             endscs.data_ptr(), minscs.data_ptr(), mat.data_ptr(), B, qmax, tmax,
-            o_del, e_del, o_ins, e_ins, max_mat, out.data_ptr(),
+            o_del, e_del, o_ins, e_ins, max_mat, out.data_ptr(), problems=B,
         )
     return out
 

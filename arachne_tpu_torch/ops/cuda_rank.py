@@ -110,7 +110,7 @@ def _rank(wrapper, entry: str, sharded: bool, fm, k: torch.Tensor) -> torch.Tens
         build.launch(
             wrapper, entry, dev,
             *table, fm.L2.data_ptr(), fm.primary, fm.seq_len, wide,
-            flat.data_ptr(), n, out.data_ptr(),
+            flat.data_ptr(), n, out.data_ptr(), problems=n,
         )
     return out.reshape(*k.shape, 4)
 

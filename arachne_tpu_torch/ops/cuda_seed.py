@@ -27,22 +27,29 @@ def _check_reads(name, fm, qs, sharded, per_read):
     return dev, table, wide, R, L
 
 
-def _outputs(fm, dev, R, MAXS):
+def _outputs(fm, dev, R, MAXS, count_rows=False):
+    """out (R, MAXS, 5) zeroed, out_n (R,), or (2, R) with a row for each
+    read's occ4 rows, and overflow (R,)."""
     out = torch.zeros((R, MAXS, 5), dtype=fm.idt, device=dev)
-    out_n = torch.empty(R, dtype=fm.idt, device=dev)
+    out_n = torch.empty((2, R) if count_rows else R, dtype=fm.idt, device=dev)
     overflow = torch.empty(R, dtype=torch.bool, device=dev)
     return out, out_n, overflow
 
 
+def _rows_arg(out_n):
+    """The kernels' rows pointer: out_n's second row, or NULL."""
+    return out_n[1].data_ptr() if out_n.dim() == 2 else None
+
+
 def _smem_pass(wrapper, entry, sharded, fm, qs, qlens, pivots0, min_intvs, single_sweep,
-               MAXC, MAXS):
+               MAXC, MAXS, count_rows):
     name = wrapper.__name__
     dev, table, wide, R, L = _check_reads(
         name, fm, qs, sharded, dict(qlens=qlens, pivots0=pivots0, min_intvs=min_intvs)
     )
     if MAXC < 1 or MAXS < 1:
         raise ValueError(f"{name}: MAXC {MAXC} / MAXS {MAXS} below 1")
-    out, out_n, overflow = _outputs(fm, dev, R, MAXS)
+    out, out_n, overflow = _outputs(fm, dev, R, MAXS, count_rows)
     # curr, prev (MAXC x 4 each) and the sweep's SMEMs (MAXS x 5) per read
     ws = torch.empty(R * (8 * MAXC + 5 * MAXS), dtype=fm.idt, device=dev)
     if R:
@@ -51,51 +58,55 @@ def _smem_pass(wrapper, entry, sharded, fm, qs, qlens, pivots0, min_intvs, singl
             *table, fm.L2.data_ptr(), fm.primary, fm.seq_len, wide,
             qs.data_ptr(), qlens.data_ptr(), pivots0.data_ptr(), min_intvs.data_ptr(),
             int(single_sweep), R, L, MAXC, MAXS, ws.data_ptr(), out.data_ptr(),
-            out_n.data_ptr(), overflow.data_ptr(),
+            out_n.data_ptr(), overflow.data_ptr(), _rows_arg(out_n), problems=R,
         )
     return out, out_n, overflow
 
 
-def _pass3(wrapper, entry, sharded, fm, qs, qlens, min_seed_len, max_intv, MAXS):
+def _pass3(wrapper, entry, sharded, fm, qs, qlens, min_seed_len, max_intv, MAXS, count_rows):
     name = wrapper.__name__
     dev, table, wide, R, L = _check_reads(name, fm, qs, sharded, dict(qlens=qlens))
     if MAXS < 1:
         raise ValueError(f"{name}: MAXS {MAXS} < 1")
-    out, out_n, overflow = _outputs(fm, dev, R, MAXS)
+    out, out_n, overflow = _outputs(fm, dev, R, MAXS, count_rows)
     if R:
         build.launch(
             wrapper, entry, dev,
             *table, fm.L2.data_ptr(), fm.primary, fm.seq_len, wide,
             qs.data_ptr(), qlens.data_ptr(), min_seed_len, max_intv, R, L, MAXS,
-            out.data_ptr(), out_n.data_ptr(), overflow.data_ptr(),
+            out.data_ptr(), out_n.data_ptr(), overflow.data_ptr(), _rows_arg(out_n), problems=R,
         )
     return out, out_n, overflow
 
 
-def smem_pass_cuda(fm, qs, qlens, pivots0, min_intvs, single_sweep: bool, MAXC: int, MAXS: int):
+def smem_pass_cuda(fm, qs, qlens, pivots0, min_intvs, single_sweep: bool, MAXC: int, MAXS: int,
+                   count_rows=False):
     """Launch S1 on CUDA tensors; returns (out (R, MAXS, 5), out_n (R,),
-    overflow (R,) bool), out and out_n in fm's row dtype."""
+    overflow (R,) bool), out and out_n in fm's row dtype; with
+    ``count_rows`` out_n is (2, R), its second row each read's occ4 rows as
+    ``smem_pass_torch(count_rows=True)`` counts them."""
     return _smem_pass(smem_pass_cuda, "arachne_smem_pass", False, fm, qs, qlens, pivots0,
-                      min_intvs, single_sweep, MAXC, MAXS)
+                      min_intvs, single_sweep, MAXC, MAXS, count_rows)
 
 
 def smem_pass_sharded_cuda(fm, qs, qlens, pivots0, min_intvs, single_sweep: bool, MAXC: int,
-                           MAXS: int):
+                           MAXS: int, count_rows=False):
     """S1 on a table split across cards (fm_rank.ShardedFMIndex)."""
     return _smem_pass(smem_pass_sharded_cuda, "arachne_smem_pass_sharded", True, fm, qs, qlens,
-                      pivots0, min_intvs, single_sweep, MAXC, MAXS)
+                      pivots0, min_intvs, single_sweep, MAXC, MAXS, count_rows)
 
 
-def pass3_cuda(fm, qs, qlens, min_seed_len: int, max_intv: int, MAXS: int):
+def pass3_cuda(fm, qs, qlens, min_seed_len: int, max_intv: int, MAXS: int, count_rows=False):
     """Launch S3 on CUDA tensors; returns (out, out_n, overflow) as S1."""
     return _pass3(pass3_cuda, "arachne_seed_pass3", False, fm, qs, qlens, min_seed_len,
-                  max_intv, MAXS)
+                  max_intv, MAXS, count_rows)
 
 
-def pass3_sharded_cuda(fm, qs, qlens, min_seed_len: int, max_intv: int, MAXS: int):
+def pass3_sharded_cuda(fm, qs, qlens, min_seed_len: int, max_intv: int, MAXS: int,
+                       count_rows=False):
     """S3 on a table split across cards (fm_rank.ShardedFMIndex)."""
     return _pass3(pass3_sharded_cuda, "arachne_seed_pass3_sharded", True, fm, qs, qlens,
-                  min_seed_len, max_intv, MAXS)
+                  min_seed_len, max_intv, MAXS, count_rows)
 
 
 smem_pass_cuda.launches = 0

@@ -71,13 +71,14 @@ def _put(buf: torch.Tensor, slot: torch.Tensor, do: torch.Tensor, item: torch.Te
 
 
 def smem_pass_torch(fm: RankTables, qs, qlens, pivots0, min_intvs, single_sweep: bool,
-                    MAXC: int, MAXS: int, stats=None):
+                    MAXC: int, MAXS: int, stats=None, count_rows=False):
     """Plain version of S1 (the reference's _smem_pass_program): qs (R, L)
     int8 codes, qlens / pivots0 / min_intvs (R,).  Returns out (R, MAXS, 5)
-    of (k, l, s, qb, qe), out_n (R,) and overflow (R,) bool.  With a dict
-    ``stats``, adds to ``stats["rank_rows"]`` the occ4 rows the reads
-    need: two per forward step of a live read and per interval a backward
-    step extends."""
+    of (k, l, s, qb, qe), out_n (R,) and overflow (R,) bool.  The occ4 rows
+    the reads need are two per forward step of a live read and per interval
+    a backward step extends: with a dict ``stats`` their sum is added to
+    ``stats["rank_rows"]``, and ``count_rows`` makes out_n (2, R), its
+    second row each read's (S1's counter)."""
     I = fm.idt
     dev = qs.device
     R, L = qs.shape
@@ -100,6 +101,8 @@ def smem_pass_torch(fm: RankTables, qs, qlens, pivots0, min_intvs, single_sweep:
     out = torch.zeros((R, MAXS, 5), dtype=I, device=dev)
     out_n = torch.zeros(R, dtype=I, device=dev)
     overflow = torch.zeros(R, dtype=torch.bool, device=dev)
+    counting = stats is not None or count_rows
+    rows = torch.zeros(R, dtype=I, device=dev)
     pivot_keep = pivots0.to(I)
 
     def push_curr(curr, curr_n, overflow, do, item):
@@ -136,8 +139,8 @@ def smem_pass_torch(fm: RankTables, qs, qlens, pivots0, min_intvs, single_sweep:
         comp = 3 - ci.clamp(0, 3)
         o0, o1, osz = extend_torch(fm, ik[:, 0], ik[:, 1], ik[:, 2], is_back=False)
         n0, n1, ns = _pick(o0, comp), _pick(o1, comp), _pick(osz, comp)
-        if stats is not None:
-            stats["rank_rows"] = stats.get("rank_rows", 0) + 2 * int(live_f.sum())
+        if counting:
+            rows += 2 * live_f
         changed = live_f & (ns != ik[:, 2])
         curr, curr_n, overflow = push_curr(curr, curr_n, overflow, changed | terminal, ik)
         too_small = changed & (ns < min_intvs)
@@ -161,8 +164,8 @@ def smem_pass_torch(fm: RankTables, qs, qlens, pivots0, min_intvs, single_sweep:
         in_back = phase == PH_BACK
         cb = _codes(qsT, qlens, i)
         c_ok = in_back & (i >= 0) & (cb < 4)
-        if stats is not None:
-            stats["rank_rows"] = stats.get("rank_rows", 0) + 2 * int(prev_n[c_ok].sum())
+        if counting:
+            rows += 2 * torch.where(c_ok, prev_n, 0)
         # items past every read's prev_n change nothing: extend and scan the
         # first m only
         m = min(MAXC, int(torch.where(in_back, prev_n, 0).max()))
@@ -227,15 +230,23 @@ def smem_pass_torch(fm: RankTables, qs, qlens, pivots0, min_intvs, single_sweep:
         out_n = torch.where(sweep_done, torch.clamp(out_n + sweep_n, max=MAXS), out_n)
         phase = torch.where(sweep_done, PH_DONE if single_sweep else PH_PIVOT, phase)
         steps += 1
-    return out, out_n, overflow
+    return out, _counted(out_n, rows, stats, count_rows), overflow
+
+
+def _counted(out_n, rows, stats, count_rows):
+    """out_n, or with ``count_rows`` out_n and each read's occ4 rows as
+    (2, R); their sum added to ``stats["rank_rows"]`` with a dict ``stats``."""
+    if stats is not None:
+        stats["rank_rows"] = stats.get("rank_rows", 0) + int(rows.sum())
+    return torch.stack([out_n, rows]) if count_rows else out_n
 
 
 def pass3_torch(fm: RankTables, qs, qlens, min_seed_len: int, max_intv: int, MAXS: int,
-                stats=None):
+                stats=None, count_rows=False):
     """Plain version of S3 (the reference's _pass3_program, the
-    bwt_seed_strategy1 pivot chains of bwt.c:358-379, in lockstep).  With
-    a dict ``stats``, adds to ``stats["rank_rows"]`` the occ4 rows the
-    reads need: two per forward step of a live read."""
+    bwt_seed_strategy1 pivot chains of bwt.c:358-379, in lockstep).  The
+    occ4 rows the reads need, two per forward step of a live read, go to
+    ``stats`` and ``count_rows`` as in ``smem_pass_torch``."""
     I = fm.idt
     dev = qs.device
     R, L = qs.shape
@@ -250,6 +261,8 @@ def pass3_torch(fm: RankTables, qs, qlens, min_seed_len: int, max_intv: int, MAX
     out = torch.zeros((R, MAXS, 5), dtype=I, device=dev)
     out_n = torch.zeros(R, dtype=I, device=dev)
     overflow = torch.zeros(R, dtype=torch.bool, device=dev)
+    counting = stats is not None or count_rows
+    rows = torch.zeros(R, dtype=I, device=dev)
 
     steps = 0
     while steps < 8 * L + 64 and not bool(done.all()):
@@ -274,8 +287,8 @@ def pass3_torch(fm: RankTables, qs, qlens, min_seed_len: int, max_intv: int, MAX
         comp = 3 - ci.clamp(0, 3)
         o0, o1, osz = extend_torch(fm, ik[:, 0], ik[:, 1], ik[:, 2], is_back=False)
         n0, n1, ns = _pick(o0, comp), _pick(o1, comp), _pick(osz, comp)
-        if stats is not None:
-            stats["rank_rows"] = stats.get("rank_rows", 0) + 2 * int(live.sum())
+        if counting:
+            rows += 2 * live
         emit = live & (ns < max_intv) & (i - x >= min_seed_len)
         do_push = emit & (ns > 0)
         ovf = do_push & (out_n >= MAXS)
@@ -291,26 +304,28 @@ def pass3_torch(fm: RankTables, qs, qlens, min_seed_len: int, max_intv: int, MAX
         x = torch.where(stop, torch.where(at_end, qlens, i + 1), x)
         scanning = scanning & ~stop
         steps += 1
-    return out, out_n, overflow
+    return out, _counted(out_n, rows, stats, count_rows), overflow
 
 
 def smem_pass(fm: RankTables, qs, qlens, pivots0, min_intvs, single_sweep: bool,
-              MAXC: int, MAXS: int):
+              MAXC: int, MAXS: int, count_rows=False):
     """S1 wrapper: plain version for CPU tensors, the kernel for CUDA (its
     sharded entry point for a ShardedFMIndex)."""
     if qs.device.type == "cpu":
-        return smem_pass_torch(fm, qs, qlens, pivots0, min_intvs, single_sweep, MAXC, MAXS)
+        return smem_pass_torch(fm, qs, qlens, pivots0, min_intvs, single_sweep, MAXC, MAXS,
+                               count_rows=count_rows)
     kernel = smem_pass_sharded_cuda if isinstance(fm, ShardedFMIndex) else smem_pass_cuda
-    return kernel(fm, qs, qlens, pivots0, min_intvs, single_sweep, MAXC, MAXS)
+    return kernel(fm, qs, qlens, pivots0, min_intvs, single_sweep, MAXC, MAXS, count_rows)
 
 
-def pass3(fm: RankTables, qs, qlens, min_seed_len: int, max_intv: int, MAXS: int):
+def pass3(fm: RankTables, qs, qlens, min_seed_len: int, max_intv: int, MAXS: int,
+          count_rows=False):
     """S3 wrapper: plain version for CPU tensors, the kernel for CUDA (its
     sharded entry point for a ShardedFMIndex)."""
     if qs.device.type == "cpu":
-        return pass3_torch(fm, qs, qlens, min_seed_len, max_intv, MAXS)
+        return pass3_torch(fm, qs, qlens, min_seed_len, max_intv, MAXS, count_rows=count_rows)
     kernel = pass3_sharded_cuda if isinstance(fm, ShardedFMIndex) else pass3_cuda
-    return kernel(fm, qs, qlens, min_seed_len, max_intv, MAXS)
+    return kernel(fm, qs, qlens, min_seed_len, max_intv, MAXS, count_rows)
 
 
 def pad_reads(reads: List[np.ndarray], device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -422,12 +437,18 @@ def pass2_inputs(jobs: Jobs, qs: torch.Tensor, qlens: torch.Tensor):
             torch.from_numpy(jobs.pivot).to(dev), torch.from_numpy(jobs.min_intv).to(dev))
 
 
-def _fetch(res):
+def _fetch(res, launch=None):
     """A pass's out (only the slots some read filled), out_n and overflow
-    flags on the host."""
+    flags on the host.  Where the pass counted occ4 rows (out_n (2, R)),
+    their sum goes on its ``launch`` span as ``rank_rows``."""
     out, cnt, ovf = res
+    cnt = cnt.cpu().numpy()
+    if cnt.ndim == 2:
+        cnt, rows = cnt
+        if launch is not None:
+            launch.attrs["rank_rows"] = int(rows.sum())
     used = int(cnt.max())
-    return out[:, :used].cpu().numpy(), cnt.cpu().numpy(), ovf.cpu().numpy()
+    return out[:, :used].cpu().numpy(), cnt, ovf.cpu().numpy()
 
 
 def collect_seeds_device_flat(
@@ -459,12 +480,17 @@ def collect_seeds_device_flat(
     MAXS = seed_buffers(L) if MAXS is None else MAXS
 
     # pass 1, and pass 3, which needs nothing of passes 1-2, launched before
-    # the host first waits on the device
+    # the host first waits on the device; traced, S1 and S3 count each
+    # read's occ4 rows into a second row of out_n, fetched with it and put
+    # on their launch spans
+    count = TIMERS.tracing and dev.type == "cuda"
     ones = torch.ones(R, dtype=torch.int32, device=dev)
-    res1 = smem_pass(dfm, qs, qlens, ones * 0, ones, False, MAXC, MAXS)
-    res3 = pass3(dfm, qs, qlens, opt.min_seed_len, opt.max_mem_intv, MAXS) \
+    res1 = smem_pass(dfm, qs, qlens, ones * 0, ones, False, MAXC, MAXS, count)
+    launch1 = TIMERS.take_launch()
+    res3 = pass3(dfm, qs, qlens, opt.min_seed_len, opt.max_mem_intv, MAXS, count) \
         if opt.max_mem_intv > 0 else None
-    out1, n1, ovf1 = _fetch(res1)
+    launch3 = TIMERS.take_launch()
+    out1, n1, ovf1 = _fetch(res1, launch1)
     overflow = ovf1[:n].astype(bool)
     (read1, rows1), jobs = pass1_seeds(out1, n1, overflow, n, opt)
 
@@ -472,14 +498,15 @@ def collect_seeds_device_flat(
     read2, rows2 = np.zeros(0, np.int64), empty
     if len(jobs.read):
         read_of, *job_args = pass2_inputs(jobs, qs, qlens)
-        o2, c2, ov2 = _fetch(smem_pass(dfm, *job_args, True, MAXC, MAXS))
+        res2 = smem_pass(dfm, *job_args, True, MAXC, MAXS, count)
+        o2, c2, ov2 = _fetch(res2, TIMERS.take_launch())
         overflow[read_of[ov2.astype(bool)]] = True
         j, rows2 = _kept(o2, c2, np.ones(len(read_of), bool), opt.min_seed_len)
         read2 = read_of[j]
 
     read3, rows3 = np.zeros(0, np.int64), empty
     if res3 is not None:
-        o3, c3, ov3 = _fetch(res3)
+        o3, c3, ov3 = _fetch(res3, launch3)
         overflow |= ov3[:n].astype(bool)
         read3, rows3 = _kept(o3[:n], c3[:n], np.ones(n, bool), 0)
 

@@ -120,12 +120,14 @@ def require_int16_state(name, h0s, max_h0: Optional[int], qmax: int, mat, *, o_d
 
 
 def extend_batch_torch(qs, ts, qlens, tlens, ws, h0s, mat, *, o_del, e_del, o_ins, e_ins, zdrop,
-                       stats=None, wide_state=True, max_h0=None):
+                       stats=None, wide_state=True, max_h0=None, count_cells=False):
     """Plain version of K1.  qs (B, qmax) / ts (B, tmax) codes 0..4, the
     rest (B,) int32, mat (5, 5) int32, all on one device.  Returns (6, B)
-    int32: maxv, qle, tle, gtle, gscore, max_off.  With a dict ``stats``,
-    adds to ``stats["cells"]`` the DP cells these inputs need: the in-band
-    cells of every row a problem reaches before it dies or ends.
+    int32: maxv, qle, tle, gtle, gscore, max_off.  The DP cells these
+    inputs need are the in-band cells of every row a problem reaches before
+    it dies or ends: with a dict ``stats`` their sum is added to
+    ``stats["cells"]``, and ``count_cells`` adds a seventh row, each
+    problem's (K1's counter).
     ``wide_state=False`` keeps H, E, M, u and the running max in int16 (the
     per-problem scalars and the row reductions stay int32), after
     ``require_int16_state`` with ``max_h0``."""
@@ -157,6 +159,8 @@ def extend_batch_torch(qs, ts, qlens, tlens, ws, h0s, mat, *, o_del, e_del, o_in
     max_off = torch.zeros(B, dtype=i32, device=dev)
     slot_idx = torch.arange(qmax + 1, dtype=i32, device=dev)[None, :]
     zcol = torch.zeros((B, 1), dtype=i32, device=dev)
+    counting = stats is not None or count_cells
+    cells = torch.zeros(B, dtype=i32, device=dev)
     n_rows = min(ts.shape[1], int(tlens.max())) if B else 0
     for i in range(n_rows):
         in_t = i < tlens
@@ -184,8 +188,8 @@ def extend_batch_torch(qs, ts, qlens, tlens, ws, h0s, mat, *, o_del, e_del, o_in
         run = torch.cummax(u + jidx_s * e_ins, dim=1).values
         F = torch.zeros_like(M)
         F[:, 1:] = (run[:, :-1] - (jidx_s[:, 1:] - 1) * e_ins).clamp_min(0)
-        if stats is not None:
-            stats["cells"] = stats.get("cells", 0) + int((in_band & row_live[:, None]).sum())
+        if counting:
+            cells += (in_band & row_live[:, None]).sum(dim=1, dtype=i32)
         Hs = torch.where(in_band, torch.maximum(torch.maximum(M, E), F), 0)
         Es = torch.where(in_band, torch.maximum(E - e_del, (M - oe_del).clamp_min(0)), 0)
         # the row's reductions in int32
@@ -231,7 +235,10 @@ def extend_batch_torch(qs, ts, qlens, tlens, ws, h0s, mat, *, o_del, e_del, o_in
         H = torch.where(keep, Hs, H)
         E = torch.where(keep, Es, E)
         alive = alive & ~die
-    return torch.stack([maxv, max_j + 1, max_i + 1, max_ie + 1, gscore, max_off])
+    if stats is not None:
+        stats["cells"] = stats.get("cells", 0) + int(cells.sum())
+    rows = [maxv, max_j + 1, max_i + 1, max_ie + 1, gscore, max_off]
+    return torch.stack(rows + [cells] if count_cells else rows)
 
 
 def extend_batch(qs, ts, qlens, tlens, ws, h0s, mat, **kw):
@@ -327,12 +334,18 @@ class BatchExtender:
                 lengths(queries[c0:c1]), lengths(targets[c0:c1]), ws[c0:c1], h0s[c0:c1],
             )
             args = [put(x, dev) for x in host]
-            pending.append(extend_batch(*args, p.mat, **p.gaps(), zdrop=p.zdrop))
+            # traced, K1 counts its cells into a seventh row of its output,
+            # fetched with it and put on its launch span
+            count = TIMERS.tracing and dev.type == "cuda"
+            out = extend_batch(*args, p.mat, **p.gaps(), zdrop=p.zdrop, count_cells=count)
+            pending.append((out, TIMERS.take_launch()))
         results = []
-        for out in pending:
-            with TIMERS.stage(f"extend.dispatch.{qmax}x{tmax}"):
+        for out, launch in pending:
+            with TIMERS.span("fetch", family="extend", qmax=qmax, tmax=tmax):
                 arr = out.cpu().numpy()
-            results.extend(map(tuple, arr.T.tolist()))
+            if launch is not None and len(arr) > 6:
+                launch.attrs["cells"] = int(arr[6].sum())
+            results.extend(map(tuple, arr[:6].T.tolist()))
         unsorted = [None] * B
         for k, i in enumerate(order):
             unsorted[i] = results[k]

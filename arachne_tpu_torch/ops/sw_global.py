@@ -213,7 +213,7 @@ class BatchGlobal:
         for idx, qmax, tmax, p, args in self._chunks(problems, self.CHUNK):
             pending.append((idx, qmax, tmax, global_score(*args, p.mat, **p.gaps())))
         for idx, qmax, tmax, score in pending:
-            with TIMERS.stage(f"global.dispatch.{qmax}x{tmax}"):
+            with TIMERS.span("fetch", family="global", qmax=qmax, tmax=tmax):
                 out[idx] = score.cpu().numpy()
         return out
 
@@ -228,7 +228,7 @@ class BatchGlobal:
             pending.append((idx, qmax, tmax, torch.stack([score, fi, fk]), ops))
         results: List[Optional[Tuple[int, List[Tuple[int, int]]]]] = [None] * len(problems)
         for idx, qmax, tmax, meta, ops in pending:
-            with TIMERS.stage(f"global.devtb.{qmax}x{tmax}"):
+            with TIMERS.span("fetch", family="traceback", qmax=qmax, tmax=tmax):
                 meta_h = meta.cpu().numpy()
                 ops_h = ops.cpu().numpy()
             for c, i in enumerate(idx):

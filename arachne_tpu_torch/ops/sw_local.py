@@ -189,7 +189,7 @@ class BatchLocalSW:
             pending.append(local_sw_full(*args, p.mat, **p.gaps(), max_mat=p.max_mat))
         parts = []
         for out in pending:
-            with TIMERS.stage(f"local.dispatch.{qmax}x{tmax}"):
+            with TIMERS.span("fetch", family="local", qmax=qmax, tmax=tmax):
                 parts.append(out.cpu().numpy())
         merged = np.concatenate(parts, axis=1)
         inv = np.empty(B, np.int64)

@@ -176,47 +176,51 @@ def process_barcodes(
     once (one set of extension/rescue/CIGAR batches), then finish each
     barcode's RFA on the host.  Amortizes device round trips across
     barcodes; per-barcode output is identical to do_rfa_for_one_barcode.
+    With the trace on, the call is one ``superbatch`` span, the root of its
+    worker's spans (runtime/timers.py).
     """
     from ..align.pipeline import seq_to_codes
     from ..runtime.timers import TIMERS
     from .candidates import chain_codes
 
-    all_pairs = []
-    spans = []
-    for reads, _ in barcode_sets:
-        start = len(all_pairs)
-        for rec in reads:
-            all_pairs.append((seq_to_codes(rec.read1), seq_to_codes(rec.read2)))
-        spans.append((start, len(all_pairs)))
-    pair_results = engine.align_pairs(all_pairs) if all_pairs else []
+    with TIMERS.span("superbatch", sets=len(barcode_sets),
+                     pairs=sum(len(reads) for reads, _ in barcode_sets)):
+        all_pairs = []
+        spans = []
+        for reads, _ in barcode_sets:
+            start = len(all_pairs)
+            for rec in reads:
+                all_pairs.append((seq_to_codes(rec.read1), seq_to_codes(rec.read2)))
+            spans.append((start, len(all_pairs)))
+        pair_results = engine.align_pairs(all_pairs) if all_pairs else []
 
-    chain_sets = []
-    with TIMERS.stage("chains.replay"):
-        for (reads, unique), (a, b) in zip(barcode_sets, spans):
-            chains, bc = get_chains(idx, cfg, reads, pair_results=pair_results[a:b])
-            chain_sets.append((chains, bc))
+        chain_sets = []
+        with TIMERS.stage("chains.replay"):
+            for (reads, unique), (a, b) in zip(barcode_sets, spans):
+                chains, bc = get_chains(idx, cfg, reads, pair_results=pair_results[a:b])
+                chain_sets.append((chains, bc))
 
-    # one reg2aln batch across every hit of every barcode
-    jobs = []
-    keys = []
-    for chains, _ in chain_sets:
-        for lst in chains:
-            for ch in lst:
-                if ch.easy is not None:
-                    jobs.append((chain_codes(ch), ch.easy.reg))
-                    keys.append(id(ch))
-    with TIMERS.stage("cigar"):
-        mem_cache = dict(zip(keys, engine.reg2aln_batch(jobs))) if jobs else {}
+        # one reg2aln batch across every hit of every barcode
+        jobs = []
+        keys = []
+        for chains, _ in chain_sets:
+            for lst in chains:
+                for ch in lst:
+                    if ch.easy is not None:
+                        jobs.append((chain_codes(ch), ch.easy.reg))
+                        keys.append(id(ch))
+        with TIMERS.stage("cigar"):
+            mem_cache = dict(zip(keys, engine.reg2aln_batch(jobs))) if jobs else {}
 
-    results = []
-    with TIMERS.stage("rfa.host"):
-        for (reads, unique), (chains, bc) in zip(barcode_sets, chain_sets):
-            alignments, stashed = get_alignments(
-                idx, cfg, chains, mem_cache=mem_cache
-            )
-            results.append(
-                _finish_barcode(
-                    idx, cfg, reads, unique, alignments, stashed, bc, centromeres
+        results = []
+        with TIMERS.stage("rfa.host"):
+            for (reads, unique), (chains, bc) in zip(barcode_sets, chain_sets):
+                alignments, stashed = get_alignments(
+                    idx, cfg, chains, mem_cache=mem_cache
                 )
-            )
-    return results
+                results.append(
+                    _finish_barcode(
+                        idx, cfg, reads, unique, alignments, stashed, bc, centromeres
+                    )
+                )
+        return results

@@ -72,7 +72,9 @@ result line):
          17; ``status`` must exit 0 and name the claim; the same command
          resumes with --stats-json and --profile-dir; after ``merge`` every
          shard must be byte-identical to phase 3's, the stats JSON must
-         parse and the profiler trace must name extend_kernel;
+         parse, the profiler trace must name extend_kernel and the
+         program's spans beside it (arachne.spans.json) must hold K1
+         launches with their DP cells;
      6b. two processes on the card (--coordinator 127.0.0.1:<free port>
          --num-processes 2): the sorted union of their records must equal
          phase 3's, each header phase 3's header, and both logs must print
@@ -1092,15 +1094,21 @@ def other_routes(work, dev, lib, host_out):
         raise AssertionError(f"6a: crash, resume and merge changed the output: {same}")
     with open(stats_json) as fh:
         stats = json.load(fh)
-    traces = [os.path.join(prof_dir, f) for f in os.listdir(prof_dir)]
-    with open(traces[0]) as fh:
+    trace_path = os.path.join(prof_dir, "arachne.trace.json")
+    with open(trace_path) as fh:
         trace = fh.read()
     json.loads(trace)
     if "extend_kernel" not in trace:
-        raise AssertionError(f"6a: the profiler trace {traces[0]} names no extend_kernel")
+        raise AssertionError(f"6a: the profiler trace {trace_path} names no extend_kernel")
+    with open(os.path.join(prof_dir, "arachne.spans.json")) as fh:
+        spans = json.load(fh)["traceEvents"]
+    k1 = [e for e in spans if e["name"] == "arachne_extend" and e["args"].get("cells")]
+    if not k1:
+        raise AssertionError("6a: the program's spans hold no K1 launch with its cells")
     log(f"   resumed run: {stats['reads']} pairs, {stats['barcodes']} barcodes, stats JSON with "
-        f"{len(stats['stage_times'])} stages; trace {os.path.basename(traces[0])} "
-        f"({len(trace)} bytes) names extend_kernel {trace.count('extend_kernel')} times")
+        f"{len(stats['stage_times'])} stages; trace ({len(trace)} bytes) names extend_kernel "
+        f"{trace.count('extend_kernel')} times; {len(spans)} span events, {len(k1)} K1 "
+        f"launches with {sum(e['args']['cells'] for e in k1)} cells")
     log(f"   6a in {time.perf_counter() - t0:.1f} s")
 
     # 6b: two processes on the one card -----------------------------------

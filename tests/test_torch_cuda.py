@@ -141,6 +141,72 @@ def test_extend_kernel_matches_plain(dev):
     assert torch.equal(got, extend_batch_torch(*args, mat_on(dev), **kw))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("problems", ["main", "edges"])
+def test_extend_kernel_counts_the_plain_versions_cells(dev, problems):
+    """K1's counter (``count_cells``: a seventh row of its output, each
+    problem's DP cells) equals extend_batch_torch's, problem for problem,
+    on the main path's problems (chip_smoke.py's K1 line) and on the edge
+    cases; without it K1 writes the six rows it always wrote."""
+    from arachne_tpu_torch.ops.cuda_extend import extend_cuda
+    from arachne_tpu_torch.ops.problems import MAIN
+    from arachne_tpu_torch.ops.sw_extend import extend_batch_torch
+
+    if problems == "main":
+        seed, B, qmax, tmax = MAIN["K1"]
+        qs, ts, ws, h0s = extend_problems(seed, B, qmax, tmax, OPT)
+    else:
+        B, qmax, tmax = 70, 256, 400
+        qs, ts, ws, h0s = edge_extend_problems(33, B, qmax, tmax)
+    args = on_device(dev, qs, ts, qmax, tmax, ws, h0s)
+    kw = dict(GAPS, zdrop=OPT.zdrop)
+    got = extend_cuda(*args, mat_on(dev), **kw, count_cells=True)
+    stats = {}
+    want = extend_batch_torch(*args, mat_on(dev), **kw, stats=stats, count_cells=True)
+    torch.cuda.synchronize()
+    assert got.shape == (7, B) and torch.equal(got, want)
+    assert int(got[6].sum()) == stats["cells"] > 0
+    assert torch.equal(extend_cuda(*args, mat_on(dev), **kw), want[:6])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+def test_seed_kernels_count_the_plain_versions_rank_rows(dev, seeding_genome, wide):
+    """S1's and S3's counters (``count_rows``: out_n's second row, each
+    read's occ4 rows) equal smem_pass_torch's and pass3_torch's, read for
+    read, for pass 1, pass 2's jobs and pass 3 of a superbatch of reads."""
+    from arachne_tpu_torch.ops.fm_rank import DeviceFMIndex
+    from arachne_tpu_torch.ops.fm_seed import (
+        pad_reads, pass1_seeds, pass2_inputs, pass3, pass3_torch, seed_buffers, smem_pass,
+        smem_pass_torch,
+    )
+
+    idx, reads = seeding_genome
+    fm = DeviceFMIndex.from_host(idx, dev, wide=wide)
+    qs, qlens = pad_reads(reads, dev)
+    R, L = qs.shape
+    MAXC = MAXS = seed_buffers(L)
+    ones = torch.ones(R, dtype=torch.int32, device=dev)
+    p1 = (qs, qlens, ones * 0, ones, False, MAXC, MAXS)
+    got1 = smem_pass(fm, *p1, count_rows=True)
+    want1 = smem_pass_torch(fm, *p1, count_rows=True)
+    assert got1[1].shape == (2, R) and all(torch.equal(a, b) for a, b in zip(got1, want1))
+    out1, n1, ovf1 = (t.cpu().numpy() for t in smem_pass(fm, *p1))
+    assert np.array_equal(n1, want1[1][0].cpu().numpy())
+    _, jobs = pass1_seeds(out1, n1, ovf1.copy(), len(reads), OPT)
+    _, *job_args = pass2_inputs(jobs, qs, qlens)
+    assert len(job_args[0])
+    p2 = (*job_args, True, MAXC, MAXS)
+    got2, want2 = smem_pass(fm, *p2, count_rows=True), smem_pass_torch(fm, *p2, count_rows=True)
+    assert all(torch.equal(a, b) for a, b in zip(got2, want2))
+    p3 = (qs, qlens, OPT.min_seed_len, OPT.max_mem_intv, MAXS)
+    stats = {}
+    got3 = pass3(fm, *p3, count_rows=True)
+    want3 = pass3_torch(fm, *p3, count_rows=True, stats=stats)
+    assert all(torch.equal(a, b) for a, b in zip(got3, want3))
+    assert int(got3[1][1].sum()) == stats["rank_rows"] > 0
+
+
 def int16_top(qmax, opt=OPT):
     from arachne_tpu_torch.ops.sw_extend import int16_max_h0
 

@@ -295,24 +295,6 @@ def test_parallel_sa_walk_progress_is_atomic_and_complete(small_fm):
         assert "volatile" not in fh.read()
 
 
-def test_nested_suppress_books_warmup_once():
-    import time
-
-    from arachne_tpu_torch.runtime.timers import StageTimers
-
-    t = StageTimers()
-    t0 = time.perf_counter()
-    with t.suppress():
-        with t.suppress():
-            time.sleep(0.05)
-            with t.stage("inner"):
-                pass
-        time.sleep(0.05)
-    elapsed = time.perf_counter() - t0
-    assert t.calls == {"warmup": 1}
-    assert 0.1 <= t.seconds["warmup"] <= elapsed
-
-
 def test_incremental_build_reports_progress_through_the_sa_walk(small_fm, monkeypatch, capsys):
     """The progress reporter used to stop before the SA sampling walk, the
     longer half of a genome-scale incremental build."""
