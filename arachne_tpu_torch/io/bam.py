@@ -1,4 +1,5 @@
-# Copy of arachne_tpu/io/bam.py, the JAX package's host code.
+# Copy of arachne_tpu/io/bam.py, the JAX package's host code, with each
+# BAM record encoded once and no per-base interpreter loops.
 """Sharded BAM/SAM emission with the reference's record semantics.
 
 Reproduces src/aligner/bamwriter.go:
@@ -11,6 +12,10 @@ Reproduces src/aligner/bamwriter.go:
     tag set (AS, XS, XC, AC, XM, AM, XT, SA, debug tags, BX/VX/DM);
   * DoDumpToBam (:635-658): every read must have exactly one active
     alignment; supplementary (split) records ride along with the primary.
+
+Each BAM record is encoded once (``encode_record``: bytes.translate and
+bytes.fromhex, no per-base loop) and the same bytes written to
+bc_sorted_bam and to the record's position bucket.
 
 Deviation (documented): the reference only attaches BX:Z when the barcode
 contains '-' (bamwriter.go:389,555), a 10x convention that drops barcode
@@ -52,6 +57,11 @@ _QUAL_MINUS33 = bytes(max(v - 33, 0) for v in range(256))   # ASCII -> phred
 # phred -> ASCII, clamped at phred 93 ('~') like the binary path below, so
 # malformed high quals stay printable ASCII (decode() would raise otherwise)
 _QUAL_PLUS33 = bytes(min(v, 93) + 33 for v in range(256))
+# phred clamped at 93, as BAM stores it
+_QUAL_CLAMP = bytes(min(v, 93) for v in range(256))
+# a base's 4-bit code as a hex digit, upper-cased, anything else 15:
+# bytes.fromhex then packs two bases a byte, the first in the high nibble
+_SEQ_HEX = bytes(b"0123456789abcdef"[SEQ_NIBBLE.get(chr(v).upper(), 15)] for v in range(256))
 
 
 def reg2bin(beg: int, end: int) -> int:
@@ -119,7 +129,11 @@ class BAMWriter:
                 buf += struct.pack("<i", len(nm)) + nm + struct.pack("<i", length)
             self.w.write(buf)
 
-    def write_record(
+    def write_bam(self, records: bytes) -> None:
+        """Encoded BAM records (``encode_record``), back to back."""
+        self.w.write(records)
+
+    def write_sam(
         self,
         name: str,
         flags: int,
@@ -134,53 +148,20 @@ class BAMWriter:
         tlen: int,
         aux: bytes,
     ) -> None:
-        if self.emit_sam:
-            rname = self.contig_names[rid] if 0 <= rid < len(self.contig_names) else "*"
-            cig = "".join(f"{l}{CIGAR_CHARS[op]}" for op, l in cigar_bam) or "*"
-            mname = "*"
-            if mate_rid >= 0:
-                mname = "=" if mate_rid == rid else self.contig_names[mate_rid]
-            tags = _aux_to_sam(aux)
-            self.fh.write(
-                f"{name}\t{flags}\t{rname}\t{pos + 1}\t{mapq}\t{cig}\t{mname}\t"
-                f"{mate_pos + 1}\t{tlen}\t{seq.decode() or '*'}\t"
-                f"{qual.translate(_QUAL_PLUS33).decode() or '*'}"
-                + ("\t" + tags if tags else "")
-                + "\n"
-            )
-            return
-        nm = name.encode() + b"\x00"
-        ncig = len(cigar_bam)
-        lseq = len(seq)
-        end = pos + sum(l for op, l in cigar_bam if op in (0, 2, 3, 7, 8))
-        rec = struct.pack(
-            "<iiBBHHHiiii",
-            rid,
-            pos,
-            len(nm),
-            mapq & 0xFF,
-            reg2bin(max(pos, 0), max(end, pos + 1)) if pos >= 0 else 4680,
-            ncig,
-            flags & 0xFFFF,
-            lseq,
-            mate_rid,
-            mate_pos,
-            tlen,
+        """One record as a SAM line."""
+        rname = self.contig_names[rid] if 0 <= rid < len(self.contig_names) else "*"
+        cig = "".join(f"{l}{CIGAR_CHARS[op]}" for op, l in cigar_bam) or "*"
+        mname = "*"
+        if mate_rid >= 0:
+            mname = "=" if mate_rid == rid else self.contig_names[mate_rid]
+        tags = _aux_to_sam(aux)
+        self.fh.write(
+            f"{name}\t{flags}\t{rname}\t{pos + 1}\t{mapq}\t{cig}\t{mname}\t"
+            f"{mate_pos + 1}\t{tlen}\t{seq.decode() or '*'}\t"
+            f"{qual.translate(_QUAL_PLUS33).decode() or '*'}"
+            + ("\t" + tags if tags else "")
+            + "\n"
         )
-        rec += nm
-        for op, l in cigar_bam:
-            rec += struct.pack("<I", (l << 4) | op)
-        packed = bytearray((lseq + 1) // 2)
-        for i, b in enumerate(seq.decode()):
-            nib = SEQ_NIBBLE.get(b.upper(), 15)
-            if i % 2 == 0:
-                packed[i // 2] = nib << 4
-            else:
-                packed[i // 2] |= nib
-        rec += bytes(packed)
-        rec += bytes(min(q, 93) for q in qual) if qual else b"\xff" * lseq
-        rec += aux
-        self.w.write(struct.pack("<i", len(rec)) + rec)
 
     def flush(self) -> None:
         if self.w is not None:
@@ -278,25 +259,46 @@ class BAMWriters:
         ci = min(max(int(aln.pos), 0) // self.chunk, len(buckets) - 1)
         return buckets[ci]
 
-    def append(self, aln: Alignment, primary: Alignment, attach_bx: bool) -> None:
-        args = encode_alignment(aln, primary, self.cfg, attach_bx, self.barcode_sorted.contig_index)
-        self.barcode_sorted.write_record(*args)
-        self._bucket_for(aln, aln.is_unmapped()).write_record(*args)
-
     def dump(self, alignments: List[List[Alignment]], attach_bx: bool) -> None:
-        """DoDumpToBam (bamwriter.go:635-658)."""
+        """DoDumpToBam (bamwriter.go:635-658): every record encoded once,
+        written to bc_sorted_bam and to its position bucket."""
+        records = []
+        buckets: List[BAMWriter] = []
+        contig_index = self.barcode_sorted.contig_index
+
+        def add(aln: Alignment, primary: Alignment) -> None:
+            records.append(encode_alignment(aln, primary, self.cfg, attach_bx, contig_index))
+            # after the encoding, whose unmapped demotion moves the record
+            buckets.append(self._bucket_for(aln, aln.is_unmapped()))
+
         for alignment_array in alignments:
             if not alignment_array:
                 raise AssertionError("not all read_ids are spoken for")
             read_output = False
             for alignment in alignment_array:
                 if alignment.active:
-                    self.append(alignment, alignment, attach_bx)
+                    add(alignment, alignment)
                     if alignment.secondary is not None:
-                        self.append(alignment.secondary, alignment, attach_bx)
+                        add(alignment.secondary, alignment)
                     read_output = True
             if not read_output:
                 raise AssertionError("read_id has no active alignment")
+        if self.barcode_sorted.emit_sam:
+            for args, w in zip(records, buckets):
+                self.barcode_sorted.write_sam(*args)
+                w.write_sam(*args)
+            return
+        encoded = [encode_record(*r) for r in records]
+        self.barcode_sorted.write_bam(b"".join(encoded))
+        # each bucket its records in order, neighbours bound for the same
+        # file joined into one write
+        i, n = 0, len(records)
+        while i < n:
+            w, j = buckets[i], i + 1
+            while j < n and buckets[j] is w:
+                j += 1
+            w.write_bam(b"".join(encoded[i:j]))
+            i = j
 
     def flush(self) -> None:
         """Push all buffered records to the OS (BGZF block flush + file
@@ -320,6 +322,48 @@ class BAMWriters:
     def close(self):
         for w in self._all_files:
             w.close()
+
+
+def encode_record(
+    name: str,
+    flags: int,
+    rid: int,
+    pos: int,
+    mapq: int,
+    cigar_bam: List[Tuple[int, int]],
+    seq: bytes,
+    qual: bytes,
+    mate_rid: int,
+    mate_pos: int,
+    tlen: int,
+    aux: bytes,
+) -> bytes:
+    """One BAM record, its block_size first (SAM/BAM specification,
+    section 4.2)."""
+    nm = name.encode() + b"\x00"
+    ncig = len(cigar_bam)
+    lseq = len(seq)
+    end = pos + sum(l for op, l in cigar_bam if op in (0, 2, 3, 7, 8))
+    rec = struct.pack(
+        "<iiBBHHHiiii",
+        rid,
+        pos,
+        len(nm),
+        mapq & 0xFF,
+        reg2bin(max(pos, 0), max(end, pos + 1)) if pos >= 0 else 4680,
+        ncig,
+        flags & 0xFFFF,
+        lseq,
+        mate_rid,
+        mate_pos,
+        tlen,
+    )
+    rec += nm
+    rec += struct.pack(f"<{ncig}I", *[(l << 4) | op for op, l in cigar_bam])
+    rec += bytes.fromhex((seq.translate(_SEQ_HEX) + b"0" * (lseq & 1)).decode())
+    rec += qual.translate(_QUAL_CLAMP) if qual else b"\xff" * lseq
+    rec += aux
+    return struct.pack("<i", len(rec)) + rec
 
 
 def hard_clip(
