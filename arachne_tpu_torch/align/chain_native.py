@@ -33,6 +33,7 @@ import numpy as np
 from ..config import MemOptions
 from ..index.fmindex import FMIndex
 from ..native import chain_available, get_lib, native_threads
+from ..runtime.timers import TIMERS
 from .chain import Chain, Seed
 
 _i32p = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
@@ -119,6 +120,7 @@ def mem_chain_flat_native(
     mem_qe = np.ascontiguousarray(mem_qe, np.int32)
     mem_off = np.ascontiguousarray(mem_off, np.int64)
     rows, seg_id, _ = expand_occurrences(mem_k, mem_s, mem_qb, mem_qe, opt.max_occ)
+    TIMERS.add_to("superbatch", seeds=len(rows))
     occ_qbeg = mem_qb[seg_id].astype(np.int32)
     occ_len = (mem_qe[seg_id] - mem_qb[seg_id]).astype(np.int32)
     if len(rows):

@@ -144,6 +144,7 @@ def batch_align_single(
                             rseq[s.rbeg + s.len - rmax0 :],
                         )
                     seed_probs.append(sp)
+        TIMERS.add_to("superbatch", chains=sum(map(len, per_read_chains)))
 
     cache: Dict[Tuple, Tuple] = {}
 

@@ -76,7 +76,12 @@
 // instruction.  The op stream is the reference's (0 = M, 2 = D, 1 = I, 3 =
 // done) in (max_steps, B) layout plus the final (i, k); the raw 2-bit
 // `which` state, 3 included, carries to the next read exactly as the host
-// walk keeps it.  z keeps the port's own layout (B, tmax, qmax).
+// walk keeps it.  The walk is the reference's scalar ksw.global2's, which
+// stores an insertion's continuation at bit 4 where ksw.c (and K3, its
+// plain version and the TPU walk) store it at bit 5: in the insertion
+// state a set continuation bit reads as 1, so the walk turns to a
+// deletion instead of staying in the insertion.  z keeps the port's own
+// layout (B, tmax, qmax).
 #include "common.cuh"
 
 namespace {
@@ -273,7 +278,8 @@ __global__ void __launch_bounds__(ARACHNE_WARPS * 32) traceback_kernel(
         const int n = min(32, max_steps - s0);
         int pos = 31, op_mine = 3;
         for (int s = 0; s < n && i >= 0 && k >= 0; ++s) {
-            const int nw = ((int)win[pos] >> (which << 1)) & 3;
+            int nw = ((int)win[pos] >> (which << 1)) & 3;
+            if (which == 2 && nw == 2) nw = 1;  // ksw.global2's turn: see above
             if (lane == s) op_mine = nw == 0 ? 0 : (nw == 1 ? 2 : 1);
             if (nw <= 1) {
                 --i;

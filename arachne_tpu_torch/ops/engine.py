@@ -315,6 +315,7 @@ class TorchEngine:
             results = dict(zip(batch_keys, out))
 
         # replay the sequential skip/insert/dedup bookkeeping
+        replayed = placed = 0
         for pi, lst in enumerate(attempts):
             mate_seq = pairs[pi][side]
             for ai, a in enumerate(lst):
@@ -340,6 +341,7 @@ class TorchEngine:
                         seq, ref, self.mat, opt.o_del, opt.e_del,
                         opt.o_ins, opt.e_ins, xtra,
                     )
+                    replayed += 1
                 if aln.score >= opt.min_seed_len and aln.qb >= 0:
                     b = AlnReg()
                     b.rid = a.rid
@@ -360,10 +362,13 @@ class TorchEngine:
                             ins = i
                             break
                     regs.insert(ins, b)
+                    placed += 1
                 # dedup after every attempt (mem_matesw tail)
                 deduped = list(sort_dedup_patch(opt, mate_regs[pi]))
                 mate_regs[pi].clear()
                 mate_regs[pi].extend(deduped)
+        TIMERS.add_to("superbatch", rescue_attempts=len(batch_keys) + replayed,
+                      rescue_placed=placed)
 
     def _matesw_skip(self, anchor: AlnReg, mate_regs: List[AlnReg]) -> bool:
         """mem_matesw's skip[] check for the FR orientation: a mate already

@@ -151,6 +151,40 @@ def edge_global_problems(seed, B, qmax, tmax):
     return qs, ts, np.asarray(ws, np.int32)
 
 
+# A read of a simple repeat against a copy of it in the benchmark's
+# human-composition genome (``human256m``), as the CIGAR stage gets it:
+# ksw.c's walk gives 65M5I80M, the reference's scalar ksw.global2
+# 6I47M1D1I15M2D1I80M, and the read's second-best placement, its XS and
+# its XC follow the CIGAR.
+REPEAT_INSERTION = (
+    "ACTCACACTCACACTCACACTCACACTCACACTCACACTCACACTCACACTCAAACTCACACTCACAATCCACTC"
+    "ACACTCACACTCACACTCACACTCACACTCACACTCACACTCACACTCACACTCACACTCACACTCACAGTCACA",
+    "ACTCACACTCACACTCACACTCACACTCACACTCACACTCACACTCACACTCACACTCACACTCACACTCACACT"
+    "CACACTCACACTCACACTCACACTCACACTCACACTCACACTCACACTCACACTCACACTCACAGTCACA",
+    12,
+)
+
+
+def repeat_insertion_problem():
+    """``REPEAT_INSERTION`` as ([q], [t], ws): int8 codes, one problem."""
+    q, t, w = REPEAT_INSERTION
+    codes = lambda s: np.frombuffer(s.encode(), np.uint8).copy()
+    lut = np.full(256, 4, np.int8)
+    lut[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4, dtype=np.int8)
+    return [lut[codes(q)]], [lut[codes(t)]], np.asarray([w], np.int32)
+
+
+def sideways_z(B, qmax, tmax):
+    """Direction bytes of 2 (H from F, no continuation) in every cell: the
+    walk alternates insertion and diagonal steps, 32 columns and 16 rows
+    every 32 steps, so it leaves K4's 32 x 32 window by its left edge,
+    which no walk of ksw.global2 over a DP's bytes does with insertions
+    alone (it never takes two in a row).  Returns (z, qlens, tlens, ws)."""
+    z = np.full((B, tmax, qmax), 2, np.uint8)
+    full = lambda n: np.full(B, n, np.int32)
+    return z, full(qmax), full(tmax), full(max(qmax, tmax))
+
+
 def on_device(dev, qs, ts, qmax, tmax, *per_problem):
     """The problems as the kernels take them, on ``dev``: (B, qmax) and
     (B, tmax) int8 codes padded with N, their lengths, then each

@@ -2,10 +2,14 @@
 
 ``global_batch_torch`` is the plain PyTorch version of the reference's XLA
 ``global_batch_kernel`` (arachne_tpu/ops/sw_global.py) and
-``traceback_torch`` of its device walk ``traceback_device``.  Direction
-bytes keep the reference's bit layout (bits 0-1 H source 0=M/1=E/2=F,
-bit 2 E-continuation, bit 5 F-continuation) in the port's own
-(B, tmax, qmax) layout.  ``global_score`` / ``global_z`` / ``traceback``
+``traceback_torch`` of its scalar walk (``ksw.global2``).  Direction
+bytes keep the reference's device bit layout (bits 0-1 H source
+0=M/1=E/2=F, bit 2 E-continuation, bit 5 F-continuation, as ksw.c) in the
+port's own (B, tmax, qmax) layout.  The scalar ``ksw.global2`` keeps the
+F-continuation at bit 4, so its walk, in the insertion state, reads a set
+continuation as 1 and turns to a deletion, where the reference's device
+walk ``traceback_device`` stays in the insertion; the port's walk takes the
+scalar turn, so its CIGARs are the scalar path's.  ``global_score`` / ``global_z`` / ``traceback``
 are the wrappers of kernels K3 and K4 (csrc/global.cu): plain versions for
 CPU tensors, kernels for CUDA tensors.
 
@@ -99,8 +103,9 @@ def global_batch_torch(qs, ts, qlens, tlens, ws, mat, *, o_del, e_del, o_ins, e_
 
 
 def traceback_torch(z, qlens, tlens, ws, *, max_steps: int):
-    """Plain version of K4: the backtrack walk (ksw.c:588-602) for all
-    lanes at once over z (B, tmax, qmax).  Returns (ops (max_steps, B) int8
+    """Plain version of K4: the backtrack walk (ksw.c:588-602, with
+    ``ksw.global2``'s turn out of an insertion) for all lanes at once over
+    z (B, tmax, qmax).  Returns (ops (max_steps, B) int8
     with 0=M, 2=D, 1=I and 3 after the lane finished, fi (B,), fk (B,))."""
     dev = z.device
     B, tmax, qmax = z.shape
@@ -118,6 +123,9 @@ def traceback_torch(z, qlens, tlens, ws, *, max_steps: int):
         idx = i.clamp(0, tmax - 1) * qmax + k.clamp(0, qmax - 1)
         zv = zf.gather(1, idx.long()[:, None])[:, 0].to(i32)
         nw = (zv >> (which << 1)) & 3
+        # ksw.global2 reads an insertion's continuation (bit 5 here, bit 4
+        # there) as 1: the walk turns to a deletion
+        nw = torch.where((which == 2) & (nw == 2), 1, nw)
         # host semantics: nw==0 -> M (i-1,k-1); ==1 -> D (i-1); >=2 -> I (k-1)
         op = torch.where(nw == 0, 0, torch.where(nw == 1, 2, 1)).to(torch.int8)
         ops[s] = torch.where(active, op, 3).to(torch.int8)

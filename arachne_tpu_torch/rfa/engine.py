@@ -29,6 +29,10 @@ from .split import check_split_reads
 from .types import Alignment, Region
 
 
+# the work counts a traced ``superbatch`` span carries (process_barcodes)
+WORK_COUNTS = ("seeds", "chains", "hits", "rescue_attempts", "rescue_placed", "candidates")
+
+
 def worth_running_rfa(
     reads: List[FastQRecordView], unique_barcode: bool, cfg: ArachneConfig
 ) -> bool:
@@ -177,14 +181,18 @@ def process_barcodes(
     barcode's RFA on the host.  Amortizes device round trips across
     barcodes; per-barcode output is identical to do_rfa_for_one_barcode.
     With the trace on, the call is one ``superbatch`` span, the root of its
-    worker's spans (runtime/timers.py).
+    worker's spans (runtime/timers.py), which carries the work that repeats
+    multiply as ``WORK_COUNTS``: seed occurrences entering the chainer,
+    chains kept, reg2aln jobs (``hits``), rescue SW windows and those that
+    placed a region, and alignments entering the RFA tail (``candidates``).
     """
     from ..align.pipeline import seq_to_codes
     from ..runtime.timers import TIMERS
     from .candidates import chain_codes
 
     with TIMERS.span("superbatch", sets=len(barcode_sets),
-                     pairs=sum(len(reads) for reads, _ in barcode_sets)):
+                     pairs=sum(len(reads) for reads, _ in barcode_sets),
+                     **dict.fromkeys(WORK_COUNTS, 0)):
         all_pairs = []
         spans = []
         for reads, _ in barcode_sets:
@@ -218,9 +226,11 @@ def process_barcodes(
                 alignments, stashed = get_alignments(
                     idx, cfg, chains, mem_cache=mem_cache
                 )
+                TIMERS.add_to("superbatch", candidates=sum(map(len, alignments)))
                 results.append(
                     _finish_barcode(
                         idx, cfg, reads, unique, alignments, stashed, bc, centromeres
                     )
                 )
+        TIMERS.add_to("superbatch", hits=len(jobs))
         return results

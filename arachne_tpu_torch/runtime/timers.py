@@ -16,7 +16,9 @@ start and end in Unix nanoseconds from ``time.time_ns()`` (torch.profiler's
 kineto clock, so host spans line up with the card's kernels) and the
 thread's CPU nanoseconds (``time.thread_time_ns()``) at both ends, and a
 dict of attributes.  ``count(name, value)`` keeps a (name, Unix ns, value)
-sample the same way.  ``spans()`` and ``counters()`` gather every
+sample the same way; ``add_to(name, **counts)`` adds work counts to the
+attributes of the innermost open span of that name.  ``spans()`` and
+``counters()`` gather every
 thread's; ``write_chrome_trace`` writes them as Chrome trace events
 (``align --profile-dir`` writes ``arachne{sfx}.spans.json`` beside the
 profiler's trace).  Spans (``span``, ``launch``) add nothing to the sums.
@@ -235,6 +237,20 @@ class StageTimers:
             if item is end:
                 return
             yield item
+
+    def add_to(self, name: str, **counts) -> None:
+        """Add ``counts`` to the attributes of the innermost span named
+        ``name`` open on this thread (work counters onto the ``superbatch``
+        span they count in), while tracing; nothing where none is open."""
+        if not self.tracing:
+            return
+        for rec in reversed(self._thread().stack):
+            if rec.name == name:
+                if rec.attrs is None:
+                    rec.attrs = {}
+                for k, v in counts.items():
+                    rec.attrs[k] = rec.attrs.get(k, 0) + v
+                return
 
     def count(self, name: str, value: float) -> None:
         """A counter sample (name, Unix ns, value), kept while tracing."""

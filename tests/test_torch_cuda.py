@@ -24,11 +24,12 @@ from arachne_tpu_torch.align.ksw import MINUS_INF
 from arachne_tpu_torch.config import ArachneConfig, MemOptions
 from arachne_tpu_torch.ops.problems import (
     EDGE_GLOBAL_KINDS, edge_global_problems, extend_problems, global_problems, local_problems,
-    on_device,
+    on_device, repeat_insertion_problem, sideways_z,
 )
 
 OPT = MemOptions()
 GAPS = dict(o_del=OPT.o_del, e_del=OPT.e_del, o_ins=OPT.o_ins, e_ins=OPT.e_ins)
+MAT = OPT.scoring_matrix()
 
 
 @pytest.fixture
@@ -324,14 +325,20 @@ def test_global_kernel_edges_match_plain(dev, qmax, tmax):
     """Strips of 2, 6, 8 and 32 columns on the edge set: w = 0, w = 1, a
     band wider than the query, tlen = 0, one-base queries, problems as
     large as qmax and tmax allow, the corner cell on the band's edge, and
-    runs of 36-40 deletions and insertions, which leave K4's 32 x 32
-    window by its top and by its left edge; neighbouring warps hold
-    different kinds.  The walk is checked whole, with a step count that is
-    no multiple of 32, and cut short after 37 steps."""
+    runs of 36-40 deletions and insertions; neighbouring warps hold
+    different kinds.  The deletions leave K4's 32 x 32 window by its top
+    edge; ksw.global2's walk turns out of an insertion after one step, so
+    ``sideways_z``'s walk leaves it by its left edge.  The walk is checked
+    whole, with a step count that is no multiple of 32, and cut short
+    after 37 steps; the whole walks, and that of ``REPEAT_INSERTION``, give
+    the scalar ksw.global2's CIGARs."""
     from arachne_tpu_torch.ops.cuda_global import (
         global_score_cuda, global_z_cuda, traceback_cuda,
     )
-    from arachne_tpu_torch.ops.sw_global import global_batch_torch, traceback_torch
+    from arachne_tpu_torch.align import ksw
+    from arachne_tpu_torch.ops.sw_global import (
+        decode_traceback_ops, global_batch_torch, traceback_torch,
+    )
 
     B = 72
     qs, ts, ws = edge_global_problems(51 + qmax, B, qmax, tmax)
@@ -352,10 +359,27 @@ def test_global_kernel_edges_match_plain(dev, qmax, tmax):
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(got, want)), max_steps
     ops = want[0].cpu().numpy()                   # the whole walks
-    for kind, op in (("deletion run", 2), ("insertion run", 1)):
+    for kind, op, seen in (("deletion run", 2, True), ("insertion run", 1, False)):
         for b in np.nonzero(kinds == EDGE_GLOBAL_KINDS.index(kind))[0]:
-            runs = "".join(map(str, ops[:, b])).split(str(op) * 33)
-            assert len(runs) > 1, (kind, b)       # more than 32 steps in a row
+            runs = "".join(map(str, ops[:, b])).split(str(op) * (33 if seen else 2))
+            assert (len(runs) > 1) == seen, (kind, b)   # 33 deletions, never 2 insertions
+    fi, fk = (x.cpu().numpy() for x in want[1:])
+    for b in np.nonzero(kinds != EDGE_GLOBAL_KINDS.index("tlen=0"))[0]:   # no row: MINUS_INF
+        cig = decode_traceback_ops(ops[:, b], int(fi[b]), int(fk[b]))
+        assert (int(sc[b]), cig) == ksw.global2(qs[b], ts[b], MAT, OPT.o_del, OPT.e_del,
+                                                OPT.o_ins, OPT.e_ins, int(ws[b])), b
+    zs, *rest = (torch.from_numpy(a).to(dev) for a in sideways_z(41, qmax, tmax))
+    got = traceback_cuda(zs, *rest, max_steps=qmax + tmax)
+    want = traceback_torch(zs, *rest, max_steps=qmax + tmax)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    if qmax >= 150:
+        rq, rt, rw = repeat_insertion_problem()
+        r_args = on_device(dev, rq, rt, qmax, tmax, rw)
+        r_sc, r_z = global_z_cuda(*r_args, mat_on(dev), **GAPS)
+        r_ops, r_fi, r_fk = (x.cpu().numpy() for x in traceback_cuda(r_z, *r_args[2:],
+                                                                     max_steps=qmax + tmax))
+        assert (int(r_sc[0]), decode_traceback_ops(r_ops[:, 0], int(r_fi[0]), int(r_fk[0]))) == \
+            ksw.global2(rq[0], rt[0], MAT, OPT.o_del, OPT.e_del, OPT.o_ins, OPT.e_ins, int(rw[0]))
 
 
 @pytest.mark.cuda

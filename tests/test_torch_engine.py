@@ -56,7 +56,7 @@ def record(r1, r2, name, barcode=b"A01C02B03D04"):
     )
 
 
-def make_reads(fwd, rng, n_pairs=8, with_mutations=True, indel=False):
+def make_reads(fwd, rng, n_pairs=8, with_mutations=True, indel=False, inserted=0):
     recs = []
     for i in range(n_pairs):
         pos = int(rng.integers(0, len(fwd) - 320))
@@ -69,6 +69,9 @@ def make_reads(fwd, rng, n_pairs=8, with_mutations=True, indel=False):
                 r1[j] = (r1[j] + 1) % 4
         if indel and i % 2 == 0:
             r1 = np.concatenate([r1[:40], r1[43:], frag[100:103]])
+        if inserted and i % 2 == 0:
+            extra = rng.integers(0, 4, inserted).astype(r1.dtype)
+            r1 = np.concatenate([r1[:50], extra, r1[50 : 100 - inserted]])
         recs.append(record(r1, r2, f"pair{i}"))
     return recs
 
@@ -103,16 +106,26 @@ def assert_same_as_oracle(idx, ref_idx, recs, engine):
 
 
 @pytest.mark.parametrize(
-    "seed,n_pairs,indel", [(11, 8, False), (5, 2, False), (13, 8, True)]
+    "seed,n_pairs,indel",
+    [(11, 8, False), (5, 2, False), (13, 8, True), (21, 8, "ins5"), (22, 8, "ins5")],
 )
 def test_barcode_identical_to_oracle(genome, ref_idx, engine, seed, n_pairs, indel):
+    """``indel`` True: 3-base deletions; "ins5": 5 inserted bases, where the
+    scalar oracle's ksw.global2 walk turns out of the insertion into a
+    deletion and the batched walk (K4's plain version) must take the same
+    turns."""
     idx, fwd = genome
-    recs = make_reads(fwd, np.random.default_rng(seed), n_pairs=n_pairs, indel=indel)
+    recs = make_reads(fwd, np.random.default_rng(seed), n_pairs=n_pairs, indel=indel is True,
+                      inserted=5 if indel == "ins5" else 0)
     before = sw_global.traceback_fetches
     got = assert_same_as_oracle(idx, ref_idx, recs, engine)
     assert got.ran_rfa == (n_pairs > 2)
     if indel:
         assert sw_global.traceback_fetches > before
+    if indel == "ins5":
+        # a turn: a D right before an I (bridge encoding, I = 1, D = 2)
+        ops = [a.cigar[::2] for alist in got.alignments for a in alist]
+        assert any(any((a, b) == (2, 1) for a, b in zip(o, o[1:])) for o in ops)
 
 
 def test_repeat_heavy_barcode_identical(genome, ref_idx, engine):

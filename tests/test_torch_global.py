@@ -4,7 +4,14 @@ kernels K3 (score and direction bytes) and K4 (the backtrack walk) must
 equal the XLA global_batch_kernel / traceback_device, the Pallas kernel
 (interpret mode) and the scalar ksw.global2 oracle exactly.  Integer
 outputs: tolerance 0.  The port keeps z as (B, tmax, qmax); the JAX
-package's is (tmax, qmax, B)."""
+package's is (tmax, qmax, B).
+
+The walk is the scalar oracle's: ksw.global2 keeps the F-continuation at
+bit 4 of a direction byte (ksw.py:211) where K3 and the XLA kernel keep it
+at bit 5, as ksw.c does, so the oracle's walk turns out of an insertion
+into a deletion where traceback_device stays in it.  traceback_device run
+over bytes with that bit moved to bit 4 (``scalar_bits``) takes the
+oracle's turns, and the port's walk must equal it step for step."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +25,7 @@ from arachne_tpu.ops.sw_global import BatchGlobal as JaxBatchGlobal
 from arachne_tpu.ops.sw_global import global_batch_kernel, traceback_device
 from arachne_tpu_torch.config import MemOptions
 from arachne_tpu_torch.ops import sw_global
-from arachne_tpu_torch.ops.problems import edge_global_problems
+from arachne_tpu_torch.ops.problems import edge_global_problems, repeat_insertion_problem
 from arachne_tpu_torch.ops.sw_extend import lengths, padded_codes
 from arachne_tpu_torch.ops.sw_global import (
     BatchGlobal,
@@ -64,6 +71,12 @@ def problems(seed, B, qmax, tmax, max_indel=1, w_range=(3, 100)):
     return qs, ts, qlens, tlens, ws
 
 
+def scalar_bits(z):
+    """Direction bytes with the F-continuation at ksw.global2's bit 4."""
+    z = np.asarray(z)
+    return (z & ~np.uint8(32)) | ((z & np.uint8(32)) >> 1)
+
+
 def jax_global(arrs, want_z):
     qs, ts = arrs[0], arrs[1]
     s, z = global_batch_kernel(
@@ -97,7 +110,7 @@ def test_traceback_matches_jax_device_walk(seed):
         OPT.o_del, OPT.e_del, OPT.o_ins, OPT.e_ins, want_z=True,
     )
     ref = traceback_device(
-        ref_z, jnp.asarray(qlens), jnp.asarray(tlens), jnp.asarray(ws),
+        jnp.asarray(scalar_bits(ref_z)), jnp.asarray(qlens), jnp.asarray(tlens), jnp.asarray(ws),
         qmax=96, tmax=160, max_steps=256,
     )
     z = torch.from_numpy(np.asarray(ref_z).transpose(2, 0, 1).copy())
@@ -108,21 +121,43 @@ def test_traceback_matches_jax_device_walk(seed):
         np.testing.assert_array_equal(np.asarray(r), g.numpy(), err_msg=name)
 
 
-def test_plain_score_and_cigar_match_scalar_oracle():
-    """Single-base indels, as the reference's own oracle tests use: the
-    scalar global2 stores the F-continuation bit at bit 4 (ksw.py:211),
-    the device kernels at bit 5 as ksw.c does, so longer insertions are
-    compared with the JAX kernels only (test_global_matches_jax)."""
-    qs, ts, qlens, tlens, ws = arrs = problems(5, 32, 96, 160, max_indel=1)
+def assert_plain_matches_scalar_oracle(arrs, max_steps):
+    qs, ts, qlens, tlens, ws = arrs
     score, z = torch_global(arrs, True)
     ops, fi, fk = traceback_torch(
-        torch.from_numpy(z), *[torch.from_numpy(x) for x in (qlens, tlens, ws)], max_steps=256
+        torch.from_numpy(z), *[torch.from_numpy(x) for x in (qlens, tlens, ws)],
+        max_steps=max_steps,
     )
+    turned = 0
     for b in range(len(qs)):
         e_score, e_cig = ksw.global2(qs[b, : qlens[b]], ts[b, : tlens[b]], MAT, OPT.o_del,
                                      OPT.e_del, OPT.o_ins, OPT.e_ins, int(ws[b]))
         cig = decode_traceback_ops(ops[:, b].numpy(), int(fi[b]), int(fk[b]))
         assert (int(score[b]), cig) == (e_score, e_cig), b
+        turned += any(a[0] == 2 and b_[0] == 1 for a, b_ in zip(cig, cig[1:]))
+    return turned
+
+
+def test_plain_score_and_cigar_match_scalar_oracle():
+    """Indels of 1-6 bases: the CIGARs are the scalar oracle's, turns out
+    of insertions into deletions (a D right before an I) included."""
+    arrs = problems(5, 32, 96, 160, max_indel=6)
+    assert assert_plain_matches_scalar_oracle(arrs, 256) > 0
+
+
+@pytest.mark.parametrize("qmax,tmax", [(192, 320), (256, 400)])
+def test_plain_walk_matches_scalar_oracle_on_edge_problems(qmax, tmax):
+    """The edge set (runs of 36-40 inserted bases among them) and the
+    repeat read whose insertion moved a second-best placement on the
+    human-composition genome (``REPEAT_INSERTION``): CIGARs and scores
+    equal the JAX package's scalar ksw.global2."""
+    qs_l, ts_l, ws = edge_global_problems(90 + qmax, 27, qmax, tmax)
+    rq, rt, rw = repeat_insertion_problem()
+    qs_l, ts_l, ws = qs_l + rq, ts_l + rt, np.concatenate([ws, rw])
+    arrs = (padded_codes(qs_l, qmax), padded_codes(ts_l, tmax), lengths(qs_l), lengths(ts_l), ws)
+    assert assert_plain_matches_scalar_oracle(arrs, qmax + tmax) > 0
+    _, cig = ksw.global2(rq[0], rt[0], MAT, OPT.o_del, OPT.e_del, OPT.o_ins, OPT.e_ins, int(rw[0]))
+    assert cig == [(1, 6), (0, 47), (2, 1), (1, 1), (0, 15), (2, 2), (1, 1), (0, 80)]
 
 
 @pytest.mark.parametrize("want_z", [False, True])
@@ -169,7 +204,8 @@ def test_edge_problem_set_matches_jax(qmax, tmax):
     np.testing.assert_array_equal(np.asarray(ref_s), got_s)
     np.testing.assert_array_equal(np.asarray(jz).transpose(2, 0, 1), got_z)
     steps = qmax + tmax - 13
-    ref = traceback_device(jz, jnp.asarray(qlens), jnp.asarray(tlens), jnp.asarray(ws),
+    ref = traceback_device(jnp.asarray(scalar_bits(jz)), jnp.asarray(qlens),
+                           jnp.asarray(tlens), jnp.asarray(ws),
                            qmax=qmax, tmax=tmax, max_steps=steps)
     got = traceback_torch(torch.from_numpy(got_z),
                           *[torch.from_numpy(x) for x in (qlens, tlens, ws)], max_steps=steps)

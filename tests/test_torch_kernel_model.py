@@ -21,7 +21,7 @@ import torch
 
 from arachne_tpu_torch.config import MemOptions
 from arachne_tpu_torch.ops.problems import (
-    EDGE_GLOBAL_KINDS, edge_global_problems, extend_problems, global_problems,
+    EDGE_GLOBAL_KINDS, edge_global_problems, extend_problems, global_problems, sideways_z,
 )
 from arachne_tpu_torch.ops.sw_extend import (
     extend_batch_torch, int16_max_h0, lengths, padded_codes,
@@ -177,6 +177,8 @@ def model_traceback(z, qlens, tlens, ws, max_steps):
             s = 0
             while s < n and i >= 0 and k >= 0:
                 nw = (int(win[pos]) >> (which << 1)) & 3
+                if which == 2 and nw == 2:
+                    nw = 1
                 op[s] = 0 if nw == 0 else (2 if nw == 1 else 1)
                 if nw <= 1:
                     i -= 1
@@ -270,15 +272,27 @@ def longest_run(col, op):
 
 
 def test_edge_set_walks_leave_a_window_by_its_top_and_left_edges():
-    """The deletion and insertion problems of the edge set walk more than
-    32 steps up, and more than 32 steps left, without a diagonal step."""
+    """The deletion problems of the edge set walk more than 32 steps up
+    without a diagonal step.  ksw.global2's walk never takes two insertion
+    steps in a row (its insertion problems turn to deletions), so the left
+    edge is left by ``sideways_z``'s walk, alternate insertion and
+    diagonal steps, 32 columns every 32 steps; the model equals the plain
+    walk on it."""
     arrs, tmax = problem_set("edges", 192)
     _, z = plain(arrs)
     ops, _, _ = model_traceback(z, *arrs[2:], 192 + tmax)
     kinds = np.arange(ops.shape[1]) % len(EDGE_GLOBAL_KINDS)
-    for kind, op in (("deletion run", 2), ("insertion run", 1)):
+    for kind, op, runs in (("deletion run", 2, lambda n: n > 32), ("insertion run", 1, lambda n: n == 1)):
         cols = np.nonzero(kinds == EDGE_GLOBAL_KINDS.index(kind))[0]
-        assert len(cols) and all(longest_run(ops[:, b], op) > 32 for b in cols), kind
+        assert len(cols) and all(runs(longest_run(ops[:, b], op)) for b in cols), kind
+    zs, qlens, tlens, ws = sideways_z(3, 192, 320)
+    got = model_traceback(zs, qlens, tlens, ws, 192 + 320)
+    want = traceback_torch(torch.from_numpy(zs), *[torch.from_numpy(a) for a in (qlens, tlens, ws)],
+                           max_steps=192 + 320)
+    for label, g, r in zip(("ops", "fi", "fk"), got, want):
+        np.testing.assert_array_equal(g, r.numpy(), err_msg=label)
+    walk = got[0][:, 0]
+    np.testing.assert_array_equal(walk[:64], np.tile([1, 0], 32))
 
 
 @pytest.mark.parametrize("broken", ["stale_diag", "mask_cells"])

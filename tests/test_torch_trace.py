@@ -467,3 +467,162 @@ def test_the_benchmark_reads_the_programs_own_spans_on_its_clock():
         assert t0 - 1e-3 <= s["start"] <= s["end"] <= t1 + 1e-3
     assert spans.launch_work(run, ["arachne_extend"], "cells") == 40
     assert 0.009 < spans.seconds_in_window(run, "driver.parse") < t1 - t0
+
+
+# -- the work counts on the superbatch span --------------------------------
+
+
+@pytest.fixture(scope="module")
+def repeats(tmp_path_factory):
+    """A 60 kbp genome whose 6 kb segment at 10 kb lies twice more at 99%
+    identity, its index, and 6 barcode sets of the benchmark's simulator
+    with 1-bp indels: reads with several hits, mates rescued."""
+    from arachne_tpu_torch.cli import main
+    from h100_bench import genomes, library
+
+    d = tmp_path_factory.mktemp("repeats")
+    ref, r1, r2 = str(d / "ref.fa"), str(d / "r1.fq"), str(d / "r2.fq")
+    rng = np.random.default_rng(5)
+    g = rng.integers(0, 4, 60_000, dtype=np.uint8)
+    for at in (30_000, 45_000):
+        copy = g[10_000:16_000].copy()
+        genomes.mutate(copy, 0.01, rng)
+        g[at : at + 6_000] = copy
+    with open(ref, "w") as fh:
+        fh.write(">chrR\n" + genomes.BASES[g].tobytes().decode() + "\n")
+    main(["index", ref])
+    sim = library.SimConfig(n_barcodes=6, molecules_per_barcode=2, pairs_per_molecule=5,
+                            molecule_len=20_000, indel_rate=0.1, vary_quals=True)
+    library.simulate(genomes.read_contigs(ref), r1, r2, sim, [7, 0], 0)
+    return {"ref": ref, "r1": r1, "r2": r2}
+
+
+def test_a_traced_superbatch_carries_its_work_counts(repeats, monkeypatch):
+    """process_barcodes' ``superbatch`` span carries the six work counts,
+    each equal to a count taken by hand from the same run: the seed
+    occurrences of the SMEMs (at most max_occ each), the chains the
+    chainer keeps, the regions interpreted as hits, the rescue windows
+    aligned in the batch or on the host and the regions they placed, the
+    alignments handed to the RFA tail.  Untraced, nothing is recorded and
+    the results are the same."""
+    from arachne_tpu_torch.align import ksw
+    from arachne_tpu_torch.align.chain_native import mem_chain_batch_native
+    from arachne_tpu_torch.align.pipeline import seq_to_codes
+    from arachne_tpu_torch.align.smem_native import collect_seeds_native
+    from arachne_tpu_torch.cli import load_or_build_index
+    from arachne_tpu_torch.config import ArachneConfig
+    from arachne_tpu_torch.io.fastq import iter_barcode_sets
+    from arachne_tpu_torch.ops import engine as ops_engine
+    from arachne_tpu_torch.ops.engine import TorchEngine
+    from arachne_tpu_torch.ops.sw_local import BatchLocalSW
+    from arachne_tpu_torch.rfa import engine as rfa_engine
+
+    idx = load_or_build_index(repeats["ref"])
+    cfg = ArachneConfig()
+    sets = list(iter_barcode_sets(repeats["r1"], repeats["r2"]))
+    pairs = [(seq_to_codes(r.read1), seq_to_codes(r.read2)) for recs, _ in sets for r in recs]
+    reads = [c for p in pairs for c in p]
+
+    seen = dict.fromkeys(("windows", "host", "placed", "candidates"), 0)
+
+    def counted(key, fn):
+        def wrapper(*a, **k):
+            seen[key] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    get_alignments = rfa_engine.get_alignments
+
+    def alignments(*a, **k):
+        out = get_alignments(*a, **k)
+        seen["candidates"] += sum(len(x) for x in out[0])
+        return out
+
+    run_align2 = BatchLocalSW.run_align2
+
+    def windows(self):
+        out = run_align2(self)
+        seen["windows"] += len(out)
+        return out
+
+    monkeypatch.setattr(BatchLocalSW, "run_align2", windows)
+    monkeypatch.setattr(ksw, "align2", counted("host", ksw.align2))
+    monkeypatch.setattr(ops_engine, "AlnReg", counted("placed", ops_engine.AlnReg))
+    monkeypatch.setattr(rfa_engine, "get_alignments", alignments)
+
+    TIMERS.trace(True)
+    try:
+        with TIMERS.in_superbatch(0):
+            traced = rfa_engine.process_barcodes(idx, cfg, sets, TorchEngine(idx, cfg, "cpu"))
+    finally:
+        TIMERS.trace(False)
+    (sb,) = [r for r in TIMERS.spans() if r.name == "superbatch"]
+    tally = dict(seen)   # the traced run's
+
+    mems = collect_seeds_native(idx, reads, cfg.mem)
+    hits = TorchEngine(idx, cfg, "cpu").align_pairs(pairs)
+    want = {
+        "seeds": sum(min(m.s, cfg.mem.max_occ) for ms in mems for m in ms),
+        "chains": sum(map(len, mem_chain_batch_native(idx, reads, cfg.mem, mems))),
+        "hits": sum(len(a) + len(b) for a, b in hits),
+        "rescue_attempts": tally["windows"] + tally["host"],
+        "rescue_placed": tally["placed"],
+        "candidates": tally["candidates"],
+    }
+    assert {k: sb.attrs[k] for k in rfa_engine.WORK_COUNTS} == want
+    assert sb.attrs["pairs"] == len(pairs) and sb.superbatch == 0
+    # reads with several hits: more occurrences than chains, rescue at work
+    assert want["seeds"] > want["chains"] > len(reads) / 2
+    assert want["hits"] > len(reads) and want["rescue_placed"] > 0
+
+    untraced = rfa_engine.process_barcodes(idx, cfg, sets, TorchEngine(idx, cfg, "cpu"))
+    assert [r.name for r in TIMERS.spans()].count("superbatch") == 1   # the traced run's
+    assert [[[(a.contig, a.pos, a.cigar, a.mapq) for a in x] for x in r.alignments]
+            for r in untraced] == \
+        [[[(a.contig, a.pos, a.cigar, a.mapq) for a in x] for x in r.alignments] for r in traced]
+
+
+def counted_run(with_counts=True):
+    """A traced run's record (window 1-11 s) with three superbatches, the
+    middle one alone ending in the window, and the stages inside each."""
+    def span(name, sb, start, end, **attrs):
+        return dict(name=name, id=0, parent=None, superbatch=sb, thread="w", start=start,
+                    end=end, cpu_s=0.0, attrs=attrs)
+
+    counts = dict(seeds=4000, chains=1000, hits=500, rescue_attempts=200, rescue_placed=50,
+                  candidates=400)
+    run = {"window": (1.0, 11.0), "window_s": 10.0, "pairs": 2000, "spans": []}
+    for sb, (a, b) in enumerate([(0.0, 1.5), (1.5, 9.0), (9.0, 12.0)]):
+        run["spans"] += [
+            span("superbatch", sb, a, b, sets=1, pairs=100, **(counts if with_counts else {})),
+            span("chain.host", sb, a, a + 0.5),
+            span("cigar", sb, a + 0.5, a + 0.75),
+            span("rfa.host", sb, a + 0.75, a + 1.15),
+            span("rescue", sb, a + 0.25, a + 0.35),
+        ]
+    return run
+
+
+COUNT_READINGS = {
+    "seeding.chain_us_per_seed": 0.5e6 / 4000,
+    "engine.cigar_us_per_hit": 0.25e6 / 500,
+    "rfa.us_per_candidate": 0.4e6 / 400,
+    "rescue.us_per_attempt": 0.1e6 / 200,
+}
+
+
+@pytest.mark.parametrize("metric", sorted(COUNT_READINGS))
+def test_work_count_readers_on_a_hand_built_run_and_none_without_counts(metric):
+    """Each reader of a stage's time over a work count takes both from the
+    superbatches whose span ends in the window; a run without the counts
+    (no trace, or a program that does not count) gives None."""
+    from h100_bench import catalog
+
+    read = catalog.reader(REPO, metric)
+    assert read(counted_run()) == pytest.approx(COUNT_READINGS[metric], rel=1e-9)
+    assert metric in {m["name"] for m in catalog.metrics_of(catalog.load(REPO), "human256m.indel",
+                                                             "per_layer")}
+    assert read(counted_run(with_counts=False)) is None
+    TIMERS.trace(True)
+    TIMERS.trace(False)
+    assert read({"window": (1.0, 11.0), "window_s": 10.0, "pairs": 2000}) is None
