@@ -31,14 +31,14 @@ _lock = threading.Lock()
 
 _SOURCES = [
     "sais.cpp", "smem.cpp", "chain.cpp", "ropebwt.cpp", "rfa_tail.cpp",
-    "cigarwalk.cpp",
+    "cigarwalk.cpp", "cigarbatch.cpp",
 ]
 
 # Expected ABI of the compiled library (ARACHNE_NATIVE_ABI in ropebwt.cpp).
 # A cached .so that predates a signature change reports an older value (or
 # lacks the symbol entirely) and is rejected rather than loaded with
 # mismatched ctypes argtypes, which would corrupt memory silently.
-_EXPECTED_ABI = 8
+_EXPECTED_ABI = 9
 
 
 def _cpu_model() -> str:
@@ -80,6 +80,38 @@ def _build(path: str) -> Optional[str]:
         if os.path.exists(tmp):
             os.remove(tmp)
         return None
+
+
+def _bind_cigar_batch(lib: ctypes.CDLL) -> None:
+    """argtypes of native/cigarbatch.cpp's entry points."""
+    i32 = ctypes.c_int32
+    i64 = ctypes.c_int64
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    i8p = ctypes.POINTER(ctypes.c_int8)
+    lib.cigar_init_batch.argtypes = (
+        [i64, i64p, ctypes.POINTER(ctypes.c_double)]
+        + [i32] * 9 + [ctypes.c_double]                 # options
+        + [i64p, i64p]                                  # mapq, w2
+    )
+    lib.cigar_prepare_batch.argtypes = (
+        [i64, u8p, i64p, i64p, i64p, i64p, i64p]      # query, off, qb, qe, rb, re
+        + [u8p, u8p, i64, i64, i8p] + [i32] * 4       # fwd, pac, l_pac, seq_len, mat
+        + [u8p, u8p, i64p]                            # qbuf, rbuf, rbuf_off
+        + [i32p, i32p, u8p, i64p, i32p]               # lq, rlen, ok, nogap, band
+    )
+    lib.cigar_finish_batch.argtypes = (
+        [i64, u8p, i32p, i64p, i32p]                  # kind, cig, cig_start, cig_n
+        + [u8p, i64p, i32p, u8p, i64p, i32p]          # qbuf, query_off, lq, rbuf, off, rlen
+        + [i64p] * 4 + [i64, i64p, i64]               # qb qe rb re, l_pac, contigs
+        + [i32p, i64p, u8p, i64p]                     # out cigar, off, md, md_off
+        + [i64p, i64p, i64p, u8p]                     # nm, pos, rid, is_rev
+    )
+    lib.global_gather_batch.argtypes = [i64, i64p, u8p, i64p, i64, i8p]
+    lib.global_nogap_batch.argtypes = [i64, i64p, u8p, i64p, u8p, i64p, i64p, i64p]
+    lib.global_decode_batch.argtypes = [i64, i64p, i64p, i8p, i64, i64, i64p, i64p,
+                                        i32p, i64p]
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
@@ -250,6 +282,10 @@ def _load() -> Optional[ctypes.CDLL]:
             lib.cigar_walk_batch.restype = ctypes.c_int
         except AttributeError:
             pass  # stale .so without the cigar walk
+        try:
+            _bind_cigar_batch(lib)
+        except AttributeError:
+            pass  # a build without the CIGAR stage's host side
         _lib = lib
     except Exception:
         _lib = None
@@ -298,6 +334,150 @@ def cigar_walk_batch_native(
     if rc != 0:
         return None
     return counters, mism_locs, mism_read_locs, mism_n
+
+
+def cigar_batch_available() -> bool:
+    """The CIGAR stage's host side in native code (native/cigarbatch.cpp)?
+    ops/engine.TorchEngine.reg2aln_batch and ops/sw_global.BatchGlobal.run
+    take their batched Python paths where it is not."""
+    lib = get_lib()
+    return lib is not None and hasattr(lib, "cigar_finish_batch")
+
+
+def _ptr(a: np.ndarray, ctype):
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def _arr(a, dtype) -> np.ndarray:
+    return np.ascontiguousarray(a, dtype)
+
+
+def cigar_init_native(reg: np.ndarray, frac_rep: np.ndarray, opt):
+    """mapq (0 for secondary hits) and the first band w2 of mem_reg2aln
+    for the rows of ``reg`` (m, 12) int64: qb, qe, rb, re, truesc, w,
+    secondary, score, sub, csub, sub_n, seedcov."""
+    reg = _arr(reg, np.int64)
+    frac_rep = _arr(frac_rep, np.float64)
+    m = len(reg)
+    mapq = np.empty(m, np.int64)
+    w2 = np.empty(m, np.int64)
+    get_lib().cigar_init_batch(
+        m, _ptr(reg, ctypes.c_int64), _ptr(frac_rep, ctypes.c_double),
+        opt.a, opt.b, opt.o_del, opt.e_del, opt.o_ins, opt.e_ins, opt.w, opt.min_seed_len,
+        opt.mapQ_coef_len, float(opt.mapQ_coef_fac) if opt.mapQ_coef_len > 0 else 0.0,
+        _ptr(mapq, ctypes.c_int64), _ptr(w2, ctypes.c_int64),
+    )
+    return mapq, w2
+
+
+def cigar_prepare_native(query, query_off, qb, qe, rb, re, fwd, pac, l_pac, seq_len, mat, opt):
+    """gen_cigar_prepare for every hit at once (cigarbatch.cpp
+    ``cigar_prepare_batch``): returns (qbuf, rbuf, rbuf_off, lq, rlen, ok,
+    nogap, band); hit i's oriented query is qbuf[query_off[i]:][:lq[i]]
+    and its window rbuf[rbuf_off[i]:][:rlen[i]].  ``fwd`` is the index's
+    forward code cache, or None to read the 2-bit ``pac``."""
+    query, mat = _arr(query, np.uint8), _arr(mat, np.int8)
+    query_off, qb, qe, rb, re = (_arr(x, np.int64) for x in (query_off, qb, qe, rb, re))
+    m = len(qb)
+    cap = np.clip(np.minimum(re, seq_len) - np.maximum(rb, 0), 0, None)
+    rbuf_off = np.zeros(m + 1, np.int64)
+    np.cumsum(cap, out=rbuf_off[1:])
+    qbuf = np.empty(max(int(query_off[-1]), 1), np.uint8)
+    rbuf = np.empty(max(int(rbuf_off[-1]), 1), np.uint8)
+    lq = np.empty(m, np.int32)
+    rlen = np.empty(m, np.int32)
+    ok = np.empty(m, np.uint8)
+    nogap = np.empty(m, np.int64)
+    band = np.empty(m, np.int32)
+    u8, i32, i64 = ctypes.c_uint8, ctypes.c_int32, ctypes.c_int64
+    get_lib().cigar_prepare_batch(
+        m, _ptr(query, u8), _ptr(query_off, i64),
+        _ptr(qb, i64), _ptr(qe, i64), _ptr(rb, i64), _ptr(re, i64),
+        None if fwd is None else _ptr(fwd, u8), _ptr(pac, u8), l_pac, seq_len,
+        _ptr(mat, ctypes.c_int8), opt.o_del, opt.e_del, opt.o_ins, opt.e_ins,
+        _ptr(qbuf, u8), _ptr(rbuf, u8), _ptr(rbuf_off, i64),
+        _ptr(lq, i32), _ptr(rlen, i32), _ptr(ok, u8), _ptr(nogap, i64), _ptr(band, i32),
+    )
+    return qbuf, rbuf, rbuf_off, lq, rlen, ok, nogap, band
+
+
+def cigar_finish_native(kind, cig, cig_start, cig_n, prep, query_off, qb, qe, rb, re,
+                        l_pac, contig_off):
+    """gen_cigar_finish and mem_reg2aln's tail for every hit at once
+    (cigarbatch.cpp ``cigar_finish_batch``) over ``prep``, what
+    ``cigar_prepare_native`` returned.  Returns (cigar pairs (k, 2) int32,
+    cigar offsets, MD bytes, MD offsets, NM, pos, rid, is_rev)."""
+    qbuf, rbuf, rbuf_off, lq, rlen = prep[:5]
+    kind, cig = _arr(kind, np.uint8), _arr(cig, np.int32)
+    cig_start, query_off, qb, qe, rb, re, contig_off = (
+        _arr(x, np.int64) for x in (cig_start, query_off, qb, qe, rb, re, contig_off))
+    cig_n = _arr(cig_n, np.int32)
+    m = len(kind)
+    out_cig = np.empty((int(cig_n.sum()) + 3 * m, 2), np.int32)
+    out_cig_off = np.empty(m + 1, np.int64)
+    md = np.empty(int(3 * (lq.sum(dtype=np.int64) + rlen.sum(dtype=np.int64))) + 24 * m, np.uint8)
+    md_off = np.empty(m + 1, np.int64)
+    nm = np.empty(m, np.int64)
+    pos = np.empty(m, np.int64)
+    rid = np.empty(m, np.int64)
+    is_rev = np.empty(m, np.bool_)
+    u8, i32, i64 = ctypes.c_uint8, ctypes.c_int32, ctypes.c_int64
+    get_lib().cigar_finish_batch(
+        m, _ptr(kind, u8), _ptr(cig, i32), _ptr(cig_start, i64), _ptr(cig_n, i32),
+        _ptr(qbuf, u8), _ptr(query_off, i64), _ptr(lq, i32),
+        _ptr(rbuf, u8), _ptr(rbuf_off, i64), _ptr(rlen, i32),
+        _ptr(qb, i64), _ptr(qe, i64), _ptr(rb, i64), _ptr(re, i64),
+        l_pac, _ptr(contig_off, i64), len(contig_off),
+        _ptr(out_cig, i32), _ptr(out_cig_off, i64), _ptr(md, u8), _ptr(md_off, i64),
+        _ptr(nm, i64), _ptr(pos, i64), _ptr(rid, i64), _ptr(is_rev, u8),
+    )
+    return out_cig[: out_cig_off[-1]], out_cig_off, md[: md_off[-1]].tobytes(), md_off, \
+        nm, pos, rid, is_rev
+
+
+def global_gather_native(sel, flat, off, width) -> np.ndarray:
+    """(len(sel), width) int8: problem sel[k]'s codes flat[off[j]:off[j+1]]
+    in row k, padded with N (4), as ops/sw_extend.padded_codes."""
+    sel, off, flat = _arr(sel, np.int64), _arr(off, np.int64), _arr(flat, np.uint8)
+    out = np.empty((len(sel), width), np.int8)
+    get_lib().global_gather_batch(
+        len(sel), _ptr(sel, ctypes.c_int64), _ptr(flat, ctypes.c_uint8),
+        _ptr(off, ctypes.c_int64), width, _ptr(out, ctypes.c_int8),
+    )
+    return out
+
+
+def global_nogap_native(sel, qs, q_off, ts, t_off, mat) -> np.ndarray:
+    """sum(mat[t, q]) of each problem sel[k] (query and target of one
+    length): BatchGlobal's all-M screen."""
+    sel, q_off, t_off, mat = (_arr(x, np.int64) for x in (sel, q_off, t_off, mat))
+    qs, ts = _arr(qs, np.uint8), _arr(ts, np.uint8)
+    out = np.empty(len(sel), np.int64)
+    i64, u8 = ctypes.c_int64, ctypes.c_uint8
+    get_lib().global_nogap_batch(
+        len(sel), _ptr(sel, i64), _ptr(qs, u8), _ptr(q_off, i64), _ptr(ts, u8),
+        _ptr(t_off, i64), _ptr(mat, i64), _ptr(out, i64),
+    )
+    return out
+
+
+def global_decode_native(lane, qlen, ops, fi, fk):
+    """Run-length CIGARs of BatchGlobal's problems (cigarbatch.cpp
+    ``global_decode_batch``): [(M, qlen[i])] where lane[i] < 0, else the
+    decode of K4's op stream in column lane[i] of ``ops`` (steps, lanes)
+    with its trailing runs fi/fk.  Returns (pairs (k, 2) int32, offsets)."""
+    lane, qlen, fi, fk = (_arr(x, np.int64) for x in (lane, qlen, fi, fk))
+    ops = _arr(ops, np.int8)
+    n = len(lane)
+    steps, lanes = ops.shape
+    out = np.empty(((steps + 2) * lanes + n, 2), np.int32)
+    off = np.empty(n + 1, np.int64)
+    i64 = ctypes.c_int64
+    get_lib().global_decode_batch(
+        n, _ptr(lane, i64), _ptr(qlen, i64), _ptr(ops, ctypes.c_int8), steps, lanes,
+        _ptr(fi, i64), _ptr(fk, i64), _ptr(out, ctypes.c_int32), _ptr(off, i64),
+    )
+    return out[: off[-1]], off
 
 
 def native_threads() -> int:

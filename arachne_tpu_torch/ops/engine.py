@@ -14,6 +14,7 @@ workflow through ``align_pairs`` / ``reg2aln_batch``.
 
 from __future__ import annotations
 
+import operator
 import os
 import threading
 import weakref
@@ -22,6 +23,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import native
 from ..align import ksw
 from ..align.cigar import (
     MemAln,
@@ -48,6 +50,13 @@ from .params import kernel_params
 from .sw_extend import BatchExtender, extend_batch
 from .sw_global import BatchGlobal, global_score, global_z, traceback
 from .sw_local import NEVER, BatchLocalSW, local_sw_full
+
+# the AlnReg fields reg2aln_batch reads: the integers the native set-up
+# takes (cigarbatch.cpp cigar_init_batch), then frac_rep, is_alt, alt_sc
+_REG_FIELDS = operator.attrgetter(
+    "qb", "qe", "rb", "re", "truesc", "w", "secondary", "score", "sub", "csub", "sub_n",
+    "seedcov", "frac_rep", "is_alt", "alt_sc",
+)
 
 _warm_lock = threading.Lock()
 _warmed: set = set()
@@ -407,7 +416,116 @@ class TorchEngine:
         self, jobs: List[Tuple[np.ndarray, Optional[AlnReg]]]
     ) -> List[MemAln]:
         """mem_reg2aln (bwamem.c:1086-1156) with the w2-doubling loop run
-        as waves of batched global alignments."""
+        as waves of batched global alignments.  The host side runs in
+        native/cigarbatch.cpp, batch by batch, where the library loads
+        (counted as ``hits_native`` on the ``superbatch`` span), else in
+        the batched Python path."""
+        if not native.cigar_batch_available():
+            return self._reg2aln_python(jobs)
+        out = self._reg2aln_native(jobs)
+        TIMERS.add_to("superbatch", hits_native=len(jobs))
+        return out
+
+    def _reg2aln_native(
+        self, jobs: List[Tuple[np.ndarray, Optional[AlnReg]]]
+    ) -> List[MemAln]:
+        """``reg2aln_batch`` with every per-hit step in native code: one
+        call sets up mapq and the bands, one fetches and orients every
+        window, each wave's DP problems go through ``BatchGlobal`` as flat
+        results, and one call writes NM/MD, the squeeze, the clips and the
+        coordinates.  Python keeps the waves' control, over arrays."""
+        idx, opt = self.idx, self.opt
+        mapped = [k for k, (_, ar) in enumerate(jobs)
+                  if ar is not None and ar.rb >= 0 and ar.re >= 0]
+        if not mapped:
+            return [MemAln(flag=0x4) for _ in jobs]
+        regs = [jobs[k][1] for k in mapped]
+        queries = [jobs[k][0] for k in mapped]
+        m = len(regs)
+        cols = list(zip(*map(_REG_FIELDS, regs)))
+        reg = np.array(cols[:12], np.int64).T.copy()
+        qb, qe, rb, re, truesc = (reg[:, c] for c in range(5))
+        secondary = reg[:, 6]
+        mapq, w2 = native.cigar_init_native(reg, np.array(cols[12], np.float64), opt)
+
+        query_off = np.zeros(m + 1, np.int64)
+        np.cumsum(np.fromiter(map(len, queries), np.int64, m), out=query_off[1:])
+        prep = native.cigar_prepare_native(
+            np.concatenate(queries), query_off, qb, qe, rb, re, idx._fwd_codes(),
+            idx.packed.pac, idx.l_pac, idx.seq_len, self.mat, opt,
+        )
+        qbuf, rbuf, rbuf_off, lq, rlen, ok, nogap, band = prep
+        ok = ok.astype(bool)
+
+        # the w2-doubling loop (mem_reg2aln :1101-1116), a wave a turn; a
+        # hit whose window fails keeps kind 0 and score 0 throughout
+        kind = np.zeros(m, np.uint8)          # 0 failed, 1 no-gap shortcut, 2 DP
+        score = np.zeros(m, np.int64)
+        cig_start = np.zeros(m, np.int64)
+        cig_n = np.zeros(m, np.int32)
+        cig_parts, cig_base = [], 0
+        last_sc = np.full(m, -(1 << 30), np.int64)
+        iters = np.zeros(m, np.int64)
+        w_max = opt.w * 4
+        active = np.arange(m)
+        while active.size:
+            w2[active] = np.minimum(w2[active], w_max)
+            ok_a = ok[active]
+            short = ok_a & (lq[active] == rlen[active]) & (w2[active] == 0)
+            dp = active[ok_a & ~short]
+            kind[active[short]] = 1
+            score[active[short]] = nogap[active[short]]
+            if dp.size:
+                d = np.abs(rlen[dp] - lq[dp])
+                w_eff = np.maximum(np.minimum(band[dp], w2[dp]), d + 3).tolist()
+                for q0, nq, r0, nr, w in zip(query_off[dp].tolist(), lq[dp].tolist(),
+                                             rbuf_off[dp].tolist(), rlen[dp].tolist(), w_eff):
+                    self.global_.submit(qbuf[q0 : q0 + nq], rbuf[r0 : r0 + nr], w)
+                with TIMERS.stage("cigar.device"):
+                    res = self.global_.run()
+                kind[dp] = 2
+                score[dp] = res.score
+                cig_start[dp] = cig_base + res.cig_off[:-1]
+                cig_n[dp] = np.diff(res.cig_off)
+                cig_parts.append(res.cig)
+                cig_base += len(res.cig)
+            sc = score[active]
+            go = (sc != last_sc[active]) & (w2[active] != w_max)
+            cont = active[go]
+            last_sc[cont] = score[cont]
+            w2[cont] <<= 1
+            iters[cont] += 1
+            active = cont[(iters[cont] < 3) & (score[cont] < truesc[cont] - opt.a)]
+
+        cig_all = np.concatenate(cig_parts) if cig_parts else np.zeros((0, 2), np.int32)
+        out_cig, cig_off, md, md_off, nm, pos, rid, is_rev = native.cigar_finish_native(
+            kind, cig_all, cig_start, cig_n, prep, query_off, qb, qe, rb, re, idx.l_pac,
+            idx._offsets,
+        )
+        pairs = list(zip(out_cig[:, 0].tolist(), out_cig[:, 1].tolist()))
+        offs = cig_off.tolist()
+        cigars = [pairs[a:b] for a, b in zip(offs, offs[1:])]
+        md = md.decode("ascii")
+        offs = md_off.tolist()
+        mds = [md[a:b] for a, b in zip(offs, offs[1:])]
+        sub = list(map(max, cols[8], cols[9]))
+        flags = np.where(secondary >= 0, 0x100, 0).tolist()
+        done = list(map(
+            MemAln, pos.tolist(), rid.tolist(), flags, is_rev.tolist(), cols[13],
+            mapq.tolist(), nm.tolist(), cigars, mds, cols[7], sub, cols[14],
+        ))
+        if len(mapped) == len(jobs):
+            return done
+        out: List[Optional[MemAln]] = [None] * len(jobs)
+        for k, a in zip(mapped, done):
+            out[k] = a
+        return [a if a is not None else MemAln(flag=0x4) for a in out]
+
+    def _reg2aln_python(
+        self, jobs: List[Tuple[np.ndarray, Optional[AlnReg]]]
+    ) -> List[MemAln]:
+        """``reg2aln_batch``'s batched Python path, hit by hit: the
+        fallback where the native library does not load."""
         idx, opt, mat = self.idx, self.opt, self.mat
 
         class _Job:

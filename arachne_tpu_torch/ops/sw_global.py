@@ -21,11 +21,13 @@ the K4 walk; only the op stream comes back to the host.
 from __future__ import annotations
 
 import threading
+from collections.abc import Sequence
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import native
 from ..align.ksw import MINUS_INF, _push_cigar
 from ..config import MemOptions
 from ..runtime.timers import TIMERS
@@ -33,7 +35,7 @@ from ..runtime.timers import TIMERS
 from .cuda_global import global_score_cuda, global_z_cuda, traceback_cuda
 from .devicepool import dispatch_devices, put
 from .params import ParamsByDevice
-from .sw_extend import bucket64, lengths, padded_codes
+from .sw_extend import bucket64, padded_codes
 
 # Number of problems that went through the direction bytes + backtrack walk
 # (i.e. were NOT settled by the all-M shortcut in BatchGlobal.run), so e2e
@@ -195,54 +197,57 @@ class BatchGlobal:
         self.problems.append((query, target, w))
         return len(self.problems) - 1
 
-    def _chunks(self, problems, chunk):
+    def _chunks(self, lens, pad, chunk):
         """tlen-sorted chunks of device tensors, chunk ci on the pool's
-        device ci (mod its size): yields (order slice, qmax, tmax, the
-        chunk's KernelParams, (qs, ts, qlens, tlens, ws))."""
-        order = sorted(range(len(problems)), key=lambda i: len(problems[i][1]))
-        qmax = bucket64(max(len(q) for q, _, _ in problems), self.QMAX)
-        tmax = bucket64(max(len(t) for _, t, _ in problems), self.TMAX)
+        device ci (mod its size), of the problems whose (qlens, tlens, ws)
+        are ``lens``; ``pad(order, qmax, tmax)`` gives the padded int8
+        query and target codes of problems ``order``, one row each.  Yields
+        (idx, qmax, tmax, the chunk's KernelParams, (qs, ts, qlens, tlens,
+        ws))."""
+        qlens, tlens, ws = lens
+        order = np.argsort(tlens, kind="stable")
+        qmax = bucket64(int(qlens.max()), self.QMAX)
+        tmax = bucket64(int(tlens.max()), self.TMAX)
+        host = (*pad(order, qmax, tmax), qlens[order].astype(np.int32),
+                tlens[order].astype(np.int32), ws[order])
         devs = dispatch_devices(self.device)
         for ci, c0 in enumerate(range(0, len(order), chunk)):
             dev = devs[ci % len(devs)]
-            idx = order[c0 : c0 + chunk]
-            qs_l = [problems[i][0] for i in idx]
-            ts_l = [problems[i][1] for i in idx]
-            host = (
-                padded_codes(qs_l, qmax), padded_codes(ts_l, tmax),
-                lengths(qs_l), lengths(ts_l),
-                np.fromiter((problems[i][2] for i in idx), np.int32, len(idx)),
-            )
-            yield idx, qmax, tmax, self.params_on[dev], [put(x, dev) for x in host]
+            rows = slice(c0, c0 + chunk)
+            yield (order[rows], qmax, tmax, self.params_on[dev],
+                   [put(x[rows], dev) for x in host])
 
-    def _scores(self, problems) -> np.ndarray:
-        out = np.empty(len(problems), np.int64)
+    def _scores(self, lens, pad) -> np.ndarray:
+        out = np.empty(len(lens[0]), np.int64)
         pending = []
-        for idx, qmax, tmax, p, args in self._chunks(problems, self.CHUNK):
+        for idx, qmax, tmax, p, args in self._chunks(lens, pad, self.CHUNK):
             pending.append((idx, qmax, tmax, global_score(*args, p.mat, **p.gaps())))
         for idx, qmax, tmax, score in pending:
             with TIMERS.span("fetch", family="global", qmax=qmax, tmax=tmax):
                 out[idx] = score.cpu().numpy()
         return out
 
-    def _traceback_on_device(self, problems):
-        """(score, cigar) for gapped problems: K3's direction bytes and the
-        K4 walk on the device; only the op stream reaches the host."""
+    def _traceback_on_device(self, lens, pad):
+        """K3's direction bytes and the K4 walk on the device for gapped
+        problems; only the op stream reaches the host.  Returns each
+        chunk's (idx, (score, fi, fk) (3, B), ops (steps, B)) on the host."""
         pending = []
-        for idx, qmax, tmax, p, args in self._chunks(problems, self.CHUNK_Z):
+        for idx, qmax, tmax, p, args in self._chunks(lens, pad, self.CHUNK_Z):
             _, _, qlens, tlens, ws = args
             score, z = global_z(*args, p.mat, **p.gaps())
             ops, fi, fk = traceback(z, qlens, tlens, ws, max_steps=qmax + tmax)
             pending.append((idx, qmax, tmax, torch.stack([score, fi, fk]), ops))
-        results: List[Optional[Tuple[int, List[Tuple[int, int]]]]] = [None] * len(problems)
+        fetched = []
         for idx, qmax, tmax, meta, ops in pending:
             with TIMERS.span("fetch", family="traceback", qmax=qmax, tmax=tmax):
-                meta_h = meta.cpu().numpy()
-                ops_h = ops.cpu().numpy()
-            for c, i in enumerate(idx):
-                cig = decode_traceback_ops(ops_h[:, c], int(meta_h[1, c]), int(meta_h[2, c]))
-                results[i] = (int(meta_h[0, c]), cig)
-        return results
+                fetched.append((idx, meta.cpu().numpy(), ops.cpu().numpy()))
+        return fetched
+
+    @staticmethod
+    def _count_fetches(n: int) -> None:
+        global traceback_fetches
+        with _fetch_lock:
+            traceback_fetches += n
 
     def run(self, want_cigar: bool = True):
         """Two-phase: score-only first; full traceback only for problems
@@ -251,19 +256,35 @@ class BatchGlobal:
         If rlen == qlen and the global score equals the no-gap score
         sum(mat[t, q]), the traceback is exactly [(M, qlen)] (the
         reference's BatchGlobal.run explains why); length-mismatched
-        problems go straight to the traceback."""
-        global traceback_fetches
+        problems go straight to the traceback.  With the native library
+        the host side runs there and the CIGARs come back flat, as
+        ``GlobalResults``; without it, as a list of (score, cigar)."""
         if not self.problems:
             return []
         problems = self.problems
         self.reset()
+        if want_cigar and native.cigar_batch_available():
+            return self._run_native(problems)
+        lens = (
+            np.fromiter((len(q) for q, _, _ in problems), np.int64, len(problems)),
+            np.fromiter((len(t) for _, t, _ in problems), np.int64, len(problems)),
+            np.fromiter((w for _, _, w in problems), np.int32, len(problems)),
+        )
+
+        def pad(sub):
+            return lambda order, qmax, tmax: (
+                padded_codes([sub[i][0] for i in order], qmax),
+                padded_codes([sub[i][1] for i in order], tmax),
+            )
+
         out: List[Optional[Tuple[int, Optional[List[Tuple[int, int]]]]]] = [None] * len(problems)
         need_tb = []
         screened = [
             i for i, (q, t, w) in enumerate(problems) if not want_cigar or len(q) == len(t)
         ]
         if screened:
-            score = self._scores([problems[i] for i in screened])
+            sub = [problems[i] for i in screened]
+            score = self._scores(tuple(x[screened] for x in lens), pad(sub))
             for k, i in enumerate(screened):
                 q, t, w = problems[i]
                 sc = int(score[k])
@@ -277,8 +298,86 @@ class BatchGlobal:
             need_tb += [i for i, (q, t, w) in enumerate(problems) if len(q) != len(t)]
             need_tb.sort()
         if need_tb:
-            with _fetch_lock:
-                traceback_fetches += len(need_tb)
-            for k, res in zip(need_tb, self._traceback_on_device([problems[i] for i in need_tb])):
-                out[k] = res
+            self._count_fetches(len(need_tb))
+            sub = [problems[i] for i in need_tb]
+            for idx, meta_h, ops_h in self._traceback_on_device(
+                    tuple(x[need_tb] for x in lens), pad(sub)):
+                for c, i in enumerate(idx):
+                    cig = decode_traceback_ops(ops_h[:, c], int(meta_h[1, c]), int(meta_h[2, c]))
+                    out[need_tb[i]] = (int(meta_h[0, c]), cig)
         return out
+
+    def _run_native(self, problems) -> "GlobalResults":
+        """``run`` with its host side in native/cigarbatch.cpp: the padded
+        launch buffers, the all-M screen and the op streams' decode, each
+        one call over flat code buffers."""
+        n = len(problems)
+        qs = [p[0] for p in problems]
+        ts = [p[1] for p in problems]
+        qlens = np.fromiter(map(len, qs), np.int64, n)
+        tlens = np.fromiter(map(len, ts), np.int64, n)
+        ws = np.fromiter((p[2] for p in problems), np.int32, n)
+        q_off = np.zeros(n + 1, np.int64)
+        t_off = np.zeros(n + 1, np.int64)
+        np.cumsum(qlens, out=q_off[1:])
+        np.cumsum(tlens, out=t_off[1:])
+        q_flat = np.concatenate(qs).astype(np.uint8, copy=False)
+        t_flat = np.concatenate(ts).astype(np.uint8, copy=False)
+
+        def pad(sel):
+            return lambda order, qmax, tmax: (
+                native.global_gather_native(sel[order], q_flat, q_off, qmax),
+                native.global_gather_native(sel[order], t_flat, t_off, tmax),
+            )
+
+        score = np.empty(n, np.int64)
+        need_tb = qlens != tlens
+        screened = np.flatnonzero(~need_tb)
+        if screened.size:
+            sc = self._scores((qlens[screened], tlens[screened], ws[screened]), pad(screened))
+            score[screened] = sc
+            nogap = native.global_nogap_native(screened, q_flat, q_off, t_flat, t_off, self.mat_np)
+            need_tb[screened[sc != nogap]] = True
+        lane = np.full(n, -1, np.int64)
+        tb = np.flatnonzero(need_tb)
+        ops = np.zeros((0, 0), np.int8)
+        fi = fk = np.zeros(0, np.int64)
+        if tb.size:
+            self._count_fetches(len(tb))
+            fetched = self._traceback_on_device((qlens[tb], tlens[tb], ws[tb]), pad(tb))
+            order = np.concatenate([idx for idx, _, _ in fetched])
+            meta = np.concatenate([m for _, m, _ in fetched], axis=1)
+            ops = np.concatenate([o for _, _, o in fetched], axis=1)
+            score[tb[order]] = meta[0]
+            lane[tb[order]] = np.arange(len(tb))
+            fi, fk = meta[1], meta[2]
+        cig, off = native.global_decode_native(lane, qlens, ops, fi, fk)
+        return GlobalResults(score, cig, off)
+
+
+class GlobalResults(Sequence):
+    """The (score, cigar) of each problem of a ``BatchGlobal.run`` with the
+    native library: score (n,) int64 and the run-length CIGARs as flat
+    (op, len) int32 pairs ``cig`` with offsets ``cig_off`` (n + 1).  As a
+    sequence it gives what the batched Python path's list holds, (score,
+    [(op, len), ...]) a problem, and compares equal to that list."""
+
+    __slots__ = ("score", "cig", "cig_off")
+
+    def __init__(self, score: np.ndarray, cig: np.ndarray, cig_off: np.ndarray):
+        self.score, self.cig, self.cig_off = score, cig, cig_off
+
+    def __len__(self) -> int:
+        return len(self.score)
+
+    def __getitem__(self, i: int):
+        if not -len(self) <= i < len(self):
+            raise IndexError(i)
+        i %= len(self)
+        a, b = self.cig_off[i], self.cig_off[i + 1]
+        return int(self.score[i]), [tuple(p) for p in self.cig[a:b].tolist()]
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, (list, tuple, GlobalResults)) and list(self) == list(other)
+
+    __hash__ = None

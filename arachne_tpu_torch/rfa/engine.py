@@ -30,7 +30,8 @@ from .types import Alignment, Region
 
 
 # the work counts a traced ``superbatch`` span carries (process_barcodes)
-WORK_COUNTS = ("seeds", "chains", "hits", "rescue_attempts", "rescue_placed", "candidates")
+WORK_COUNTS = ("seeds", "chains", "hits", "rescue_attempts", "rescue_placed", "candidates",
+               "hits_native")
 
 
 def worth_running_rfa(
@@ -184,7 +185,9 @@ def process_barcodes(
     worker's spans (runtime/timers.py), which carries the work that repeats
     multiply as ``WORK_COUNTS``: seed occurrences entering the chainer,
     chains kept, reg2aln jobs (``hits``), rescue SW windows and those that
-    placed a region, and alignments entering the RFA tail (``candidates``).
+    placed a region, alignments entering the RFA tail (``candidates``), and
+    the hits whose CIGAR stage ran its host side in native code
+    (``hits_native``: ``hits``, or 0 without the native library).
     """
     from ..align.pipeline import seq_to_codes
     from ..runtime.timers import TIMERS

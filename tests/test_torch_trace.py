@@ -505,6 +505,7 @@ def test_a_traced_superbatch_carries_its_work_counts(repeats, monkeypatch):
     aligned in the batch or on the host and the regions they placed, the
     alignments handed to the RFA tail.  Untraced, nothing is recorded and
     the results are the same."""
+    from arachne_tpu_torch import native
     from arachne_tpu_torch.align import ksw
     from arachne_tpu_torch.align.chain_native import mem_chain_batch_native
     from arachne_tpu_torch.align.pipeline import seq_to_codes
@@ -568,6 +569,8 @@ def test_a_traced_superbatch_carries_its_work_counts(repeats, monkeypatch):
         "rescue_attempts": tally["windows"] + tally["host"],
         "rescue_placed": tally["placed"],
         "candidates": tally["candidates"],
+        "hits_native": sum(len(a) + len(b) for a, b in hits) if native.cigar_batch_available()
+        else 0,
     }
     assert {k: sb.attrs[k] for k in rfa_engine.WORK_COUNTS} == want
     assert sb.attrs["pairs"] == len(pairs) and sb.superbatch == 0
