@@ -1,7 +1,8 @@
 # Copy of arachne_tpu/align/chain_native.py, the JAX package's host code,
 # but for one split: the body of mem_chain_batch_native after _flatten_mems
-# is mem_chain_flat_native, which device seeding's flat seed arrays enter
-# directly (ops/fm_seed.py SeedBatch); the output is the reference's.
+# is mem_chain_flat_native, which either seeder's flat seed arrays enter
+# directly (ops/batch.py, as an ops/fm_seed.py SeedBatch); the output is
+# the reference's.
 """Native (C++) seed chaining driver.
 
 Wraps native/chain.cpp's `chain_batch`: mem_chain + mem_chain_flt
@@ -32,7 +33,7 @@ import numpy as np
 
 from ..config import MemOptions
 from ..index.fmindex import FMIndex
-from ..native import chain_available, get_lib, native_threads
+from ..native import chain_available, native_threads, require_lib
 from ..runtime.timers import TIMERS
 from .chain import Chain, Seed
 
@@ -101,16 +102,14 @@ def mem_chain_flat_native(
     mem_qe: np.ndarray,
     mem_off: np.ndarray,
     n_threads: Optional[int] = None,
-) -> Optional[List[List[Chain]]]:
+) -> List[List[Chain]]:
     """mem_chain_batch_native on SMEMs given as flat arrays: k, s int64,
     qb, qe int32 and per-read offsets (n + 1,) int64, read r's SMEMs at
-    mem_off[r]:mem_off[r + 1] in its collector's order.  None when the
-    native library is unavailable."""
-    if not chain_available():
-        return None
+    mem_off[r]:mem_off[r + 1] in its collector's order.  Raises without
+    the native library."""
     if n_threads is None:
         n_threads = native_threads()
-    lib = get_lib()
+    lib = require_lib()
     n_reads = len(reads)
     if n_reads == 0:
         return []

@@ -4,8 +4,9 @@
 
 Compiled on demand with g++ into a shared library under
 ``build/arachne_tpu_torch/native/<hash of sources, flags and CPU>/`` at the
-root of the checkout; everything has a pure-numpy fallback so the package
-works without a toolchain.
+root of the checkout.  The engine (ops/engine.TorchEngine) requires the
+library, as it requires the CUDA kernels' (``require_lib``); the helpers
+here that return None without it serve the index build and the tests.
 """
 
 from __future__ import annotations
@@ -117,6 +118,17 @@ def _bind_cigar_batch(lib: ctypes.CDLL) -> None:
 def get_lib() -> Optional[ctypes.CDLL]:
     with _lock:
         return _load()
+
+
+def require_lib() -> ctypes.CDLL:
+    """The library, built on first use; raises if it cannot be."""
+    lib = get_lib()
+    if lib is None:
+        raise RuntimeError(
+            "the native host library did not load: g++ could not build "
+            "arachne_tpu_torch/native/*.cpp, or the cached build has another ABI"
+        )
+    return lib
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -334,14 +346,6 @@ def cigar_walk_batch_native(
     if rc != 0:
         return None
     return counters, mism_locs, mism_read_locs, mism_n
-
-
-def cigar_batch_available() -> bool:
-    """The CIGAR stage's host side in native code (native/cigarbatch.cpp)?
-    ops/engine.TorchEngine.reg2aln_batch and ops/sw_global.BatchGlobal.run
-    take their batched Python paths where it is not."""
-    lib = get_lib()
-    return lib is not None and hasattr(lib, "cigar_finish_batch")
 
 
 def _ptr(a: np.ndarray, ctype):

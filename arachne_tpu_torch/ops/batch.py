@@ -6,10 +6,9 @@ and its helpers; that module cannot be imported without JAX) bound to the
 port's ``BatchExtender``:
 
   1. SMEM seeding, on the device (``fm_seed.collect_seeds_device_flat``,
-     kernels S1 and S3, whose flat seed arrays go straight into the native
-     chainer) when given the index's device tables, else on the host (the
-     native C++ collector when it loads); then host chaining and filtering
-     per read;
+     kernels S1 and S3) when given the index's device tables, else on the
+     host (the native C++ collector); either way the seeds enter the native
+     chainer as one flat ``SeedBatch``; then filtering per read;
   2. wave 1: every seed's LEFT extension at the base band, deduplicated by
      content; rounds 2-4: the doubled-band retries (bwamem.c:723-733) and
      the RIGHT extensions whose h0 the left result fixes;
@@ -23,14 +22,16 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ..align.chain import Chain, chain_filter, filter_chained_seeds, mem_chain_batch
+from ..align.chain import Chain, filter_chained_seeds
+from ..align.chain_native import mem_chain_flat_native
 from ..align.extend import AlnReg, cal_max_gap, chain2aln, sort_dedup_patch
+from ..align.smem_native import collect_seeds_native_flat
 from ..config import MemOptions
 from ..index.fmindex import FMIndex
 from ..runtime.timers import TIMERS
 
 from .fm_rank import RankTables
-from .fm_seed import collect_seeds_device_flat
+from .fm_seed import SeedBatch, collect_seeds_device_flat
 from .sw_extend import BatchExtender
 
 
@@ -88,42 +89,19 @@ def batch_align_single(
     runs on its device too."""
     if mat is None:
         mat = opt.scoring_matrix()
-    flat = None
     if dfm is not None:
         with TIMERS.stage("seed.device"):
             flat = collect_seeds_device_flat(reads, opt, dfm)
     else:
-        from ..align.smem_native import smem_available
-
         with TIMERS.stage("seed.host"):
-            if smem_available():
-                # C++ three-pass collector: exact scalar output, releases the GIL
-                from ..align.smem_native import collect_seeds_native
-
-                all_mems = collect_seeds_native(idx, reads, opt)
-            else:
-                from ..align.smem_dense import collect_seeds_dense
-
-                all_mems = collect_seeds_dense(idx, reads, opt)
+            # C++ three-pass collector: exact scalar output, releases the GIL
+            flat = SeedBatch.of_rows(len(reads), *collect_seeds_native_flat(idx, reads, opt))
     per_read_chains: List[List[Chain]] = []
     seed_probs: List[_SeedProblems] = []
     with TIMERS.stage("chain.host"):
-        from ..align.chain_native import mem_chain_batch_native, mem_chain_flat_native
-
-        if flat is not None:
-            # the device's seeds enter the native chainer as flat arrays
-            chained = mem_chain_flat_native(idx, reads, opt, flat.k, flat.s, flat.qb, flat.qe,
-                                            flat.off)
-        else:
-            chained = mem_chain_batch_native(idx, reads, opt, all_mems)
-        prefiltered = chained is not None
-        if chained is None:
-            if flat is not None:
-                all_mems = flat.to_lists()
-            chained = mem_chain_batch(idx, reads, opt, all_mems)
+        chained = mem_chain_flat_native(idx, reads, opt, flat.k, flat.s, flat.qb, flat.qe,
+                                        flat.off)
         for codes, chains in zip(reads, chained):
-            if not prefiltered:
-                chains = chain_filter(opt, chains)
             filter_chained_seeds(idx, codes, chains, opt)
             per_read_chains.append(chains)
             l_query = len(codes)

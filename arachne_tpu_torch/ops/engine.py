@@ -25,15 +25,7 @@ import torch
 
 from .. import native
 from ..align import ksw
-from ..align.cigar import (
-    MemAln,
-    OP_D,
-    OP_S,
-    approx_mapq_se,
-    gen_cigar_finish,
-    gen_cigar_prepare,
-    infer_bw,
-)
+from ..align.cigar import MemAln
 from ..align.extend import AlnReg, sort_dedup_patch
 from ..align.pairing import infer_dir
 from ..align.pipeline import EasyAlignment, interpret_align
@@ -218,7 +210,9 @@ class TorchEngine:
     ``device_seeding`` as ``resolve_device_seeding`` reads it for the
     engine's device (on by default on a card); when on, seeding runs on
     the device against the index's shared rank tables, placed by
-    ``rank_tables`` under ``cfg.pipeline.index_mode``."""
+    ``rank_tables`` under ``cfg.pipeline.index_mode``.  Raises without the
+    native host library (native/*.cpp): host seeding, chaining and the
+    CIGAR stage's host side run in it, with no Python fallback."""
 
     def __init__(self, idx: FMIndex, cfg: ArachneConfig, device="cuda",
                  device_seeding: Optional[bool] = None):
@@ -226,6 +220,7 @@ class TorchEngine:
         self.cfg = cfg
         self.opt = cfg.mem
         self.device = resolve_device(device)
+        native.require_lib()
         self.mat = cfg.mem.scoring_matrix()
         self.extender = BatchExtender(cfg.mem, self.device)
         self.local = BatchLocalSW(cfg.mem, self.device)
@@ -416,24 +411,12 @@ class TorchEngine:
         self, jobs: List[Tuple[np.ndarray, Optional[AlnReg]]]
     ) -> List[MemAln]:
         """mem_reg2aln (bwamem.c:1086-1156) with the w2-doubling loop run
-        as waves of batched global alignments.  The host side runs in
-        native/cigarbatch.cpp, batch by batch, where the library loads
-        (counted as ``hits_native`` on the ``superbatch`` span), else in
-        the batched Python path."""
-        if not native.cigar_batch_available():
-            return self._reg2aln_python(jobs)
-        out = self._reg2aln_native(jobs)
-        TIMERS.add_to("superbatch", hits_native=len(jobs))
-        return out
-
-    def _reg2aln_native(
-        self, jobs: List[Tuple[np.ndarray, Optional[AlnReg]]]
-    ) -> List[MemAln]:
-        """``reg2aln_batch`` with every per-hit step in native code: one
-        call sets up mapq and the bands, one fetches and orients every
-        window, each wave's DP problems go through ``BatchGlobal`` as flat
-        results, and one call writes NM/MD, the squeeze, the clips and the
-        coordinates.  Python keeps the waves' control, over arrays."""
+        as waves of batched global alignments and every per-hit step in
+        native/cigarbatch.cpp: one call sets up mapq and the bands, one
+        fetches and orients every window, each wave's DP problems go
+        through ``BatchGlobal`` as flat results, and one call writes NM/MD,
+        the squeeze, the clips and the coordinates.  Python keeps the
+        waves' control, over arrays."""
         idx, opt = self.idx, self.opt
         mapped = [k for k, (_, ar) in enumerate(jobs)
                   if ar is not None and ar.rb >= 0 and ar.re >= 0]
@@ -520,135 +503,3 @@ class TorchEngine:
         for k, a in zip(mapped, done):
             out[k] = a
         return [a if a is not None else MemAln(flag=0x4) for a in out]
-
-    def _reg2aln_python(
-        self, jobs: List[Tuple[np.ndarray, Optional[AlnReg]]]
-    ) -> List[MemAln]:
-        """``reg2aln_batch``'s batched Python path, hit by hit: the
-        fallback where the native library does not load."""
-        idx, opt, mat = self.idx, self.opt, self.mat
-
-        class _Job:
-            __slots__ = (
-                "query", "ar", "a", "w2", "last_sc", "iter", "done",
-                "score", "cigar", "nm", "md", "prep",
-            )
-
-        out_jobs: List[_Job] = []
-        active: List[_Job] = []
-        for query, ar in jobs:
-            j = _Job()
-            a = MemAln()
-            j.a = a
-            if ar is None or ar.rb < 0 or ar.re < 0:
-                a.flag |= 0x4
-                j.done = True
-                out_jobs.append(j)
-                continue
-            j.query = query
-            j.ar = ar
-            a.mapq = approx_mapq_se(opt, ar) if ar.secondary < 0 else 0
-            if ar.secondary >= 0:
-                a.flag |= 0x100
-            w2 = max(
-                infer_bw(ar.qe - ar.qb, ar.re - ar.rb, ar.truesc, opt.a, opt.o_del, opt.e_del),
-                infer_bw(ar.qe - ar.qb, ar.re - ar.rb, ar.truesc, opt.a, opt.o_ins, opt.e_ins),
-            )
-            if w2 > opt.w:
-                w2 = min(w2, ar.w)
-            j.w2 = w2
-            j.last_sc = -(1 << 30)
-            j.iter = 0
-            j.done = False
-            out_jobs.append(j)
-            active.append(j)
-
-        while active:
-            dp_jobs = []
-            for j in active:
-                j.w2 = min(j.w2, opt.w * 4)
-                ar = j.ar
-                prep = gen_cigar_prepare(
-                    idx, j.query[ar.qb : ar.qe], ar.rb, ar.re, j.w2, opt, mat
-                )
-                j.prep = prep
-                if prep[0] == "fail":
-                    j.score, j.cigar, j.nm, j.md = 0, None, -1, ""
-                elif prep[0] == "done":
-                    _, q2, rs2, sc, cig = prep
-                    j.score, j.cigar, j.nm, j.md = gen_cigar_finish(
-                        q2, rs2, ar.rb, idx.l_pac, sc, cig, True
-                    )
-                else:
-                    dp_jobs.append(j)
-            if dp_jobs:
-                for j in dp_jobs:
-                    _, q2, rs2, w_eff = j.prep
-                    self.global_.submit(q2, rs2, w_eff)
-                with TIMERS.stage("cigar.device"):
-                    results = self.global_.run()
-                for j, (sc, cig) in zip(dp_jobs, results):
-                    _, q2, rs2, w_eff = j.prep
-                    j.score, j.cigar, j.nm, j.md = gen_cigar_finish(
-                        q2, rs2, j.ar.rb, idx.l_pac, sc, cig, True
-                    )
-            next_active = []
-            for j in active:
-                if j.score == j.last_sc or j.w2 == opt.w * 4:
-                    j.done = True
-                else:
-                    j.last_sc = j.score
-                    j.w2 <<= 1
-                    j.iter += 1
-                    if j.iter < 3 and j.score < j.ar.truesc - opt.a:
-                        next_active.append(j)
-                    else:
-                        j.done = True
-            active = next_active
-
-        # host finalization (bwa-side of mem_reg2aln), coordinate
-        # conversions batched across all jobs
-        mapped = [j for j in out_jobs if not (j.a.flag & 0x4)]
-        if mapped:
-            fpos_all, is_rev_all = idx.depos(
-                np.array(
-                    [j.ar.rb if j.ar.rb < idx.l_pac else j.ar.re - 1 for j in mapped],
-                    np.int64,
-                )
-            )
-        poses = np.zeros(len(mapped), np.int64)
-        for k, j in enumerate(mapped):
-            a = j.a
-            ar = j.ar
-            l_query = len(j.query)
-            a.NM = j.nm
-            a.MD = j.md
-            cigar = list(j.cigar) if j.cigar else []
-            pos = int(fpos_all[k])
-            a.is_rev = bool(is_rev_all[k])
-            if cigar:
-                if cigar[0][0] == OP_D:
-                    pos += cigar[0][1]
-                    cigar = cigar[1:]
-                elif cigar[-1][0] == OP_D:
-                    cigar = cigar[:-1]
-            if ar.qb != 0 or ar.qe != l_query:
-                clip5 = l_query - ar.qe if a.is_rev else ar.qb
-                clip3 = ar.qb if a.is_rev else l_query - ar.qe
-                if clip5:
-                    cigar = [(OP_S, clip5)] + cigar
-                if clip3:
-                    cigar = cigar + [(OP_S, clip3)]
-            a.cigar = cigar
-            poses[k] = pos
-        if mapped:
-            rids = idx.pos2rid(poses)
-            for k, j in enumerate(mapped):
-                a, ar = j.a, j.ar
-                a.rid = int(rids[k])
-                a.pos = int(poses[k]) - idx.packed.anns[a.rid].offset
-                a.score = ar.score
-                a.sub = max(ar.sub, ar.csub)
-                a.is_alt = ar.is_alt
-                a.alt_sc = ar.alt_sc
-        return [j.a for j in out_jobs]

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import threading
 from collections.abc import Sequence
-from typing import List, Optional, Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -35,7 +35,7 @@ from ..runtime.timers import TIMERS
 from .cuda_global import global_score_cuda, global_z_cuda, traceback_cuda
 from .devicepool import dispatch_devices, put
 from .params import ParamsByDevice
-from .sw_extend import bucket64, padded_codes
+from .sw_extend import bucket64
 
 # Number of problems that went through the direction bytes + backtrack walk
 # (i.e. were NOT settled by the all-M shortcut in BatchGlobal.run), so e2e
@@ -249,69 +249,23 @@ class BatchGlobal:
         with _fetch_lock:
             traceback_fetches += n
 
-    def run(self, want_cigar: bool = True):
+    def run(self) -> "GlobalResults":
         """Two-phase: score-only first; full traceback only for problems
         whose optimum is not provably the all-M alignment.
 
         If rlen == qlen and the global score equals the no-gap score
         sum(mat[t, q]), the traceback is exactly [(M, qlen)] (the
         reference's BatchGlobal.run explains why); length-mismatched
-        problems go straight to the traceback.  With the native library
-        the host side runs there and the CIGARs come back flat, as
-        ``GlobalResults``; without it, as a list of (score, cigar)."""
-        if not self.problems:
-            return []
+        problems go straight to the traceback.  The host side runs in
+        native/cigarbatch.cpp: the padded launch buffers, the all-M screen
+        and the op streams' decode, each one call over flat code
+        buffers."""
         problems = self.problems
         self.reset()
-        if want_cigar and native.cigar_batch_available():
-            return self._run_native(problems)
-        lens = (
-            np.fromiter((len(q) for q, _, _ in problems), np.int64, len(problems)),
-            np.fromiter((len(t) for _, t, _ in problems), np.int64, len(problems)),
-            np.fromiter((w for _, _, w in problems), np.int32, len(problems)),
-        )
-
-        def pad(sub):
-            return lambda order, qmax, tmax: (
-                padded_codes([sub[i][0] for i in order], qmax),
-                padded_codes([sub[i][1] for i in order], tmax),
-            )
-
-        out: List[Optional[Tuple[int, Optional[List[Tuple[int, int]]]]]] = [None] * len(problems)
-        need_tb = []
-        screened = [
-            i for i, (q, t, w) in enumerate(problems) if not want_cigar or len(q) == len(t)
-        ]
-        if screened:
-            sub = [problems[i] for i in screened]
-            score = self._scores(tuple(x[screened] for x in lens), pad(sub))
-            for k, i in enumerate(screened):
-                q, t, w = problems[i]
-                sc = int(score[k])
-                if not want_cigar:
-                    out[i] = (sc, None)
-                elif sc == int(self.mat_np[t, q].sum()):
-                    out[i] = (sc, [(0, len(q))])
-                else:
-                    need_tb.append(i)
-        if want_cigar:
-            need_tb += [i for i, (q, t, w) in enumerate(problems) if len(q) != len(t)]
-            need_tb.sort()
-        if need_tb:
-            self._count_fetches(len(need_tb))
-            sub = [problems[i] for i in need_tb]
-            for idx, meta_h, ops_h in self._traceback_on_device(
-                    tuple(x[need_tb] for x in lens), pad(sub)):
-                for c, i in enumerate(idx):
-                    cig = decode_traceback_ops(ops_h[:, c], int(meta_h[1, c]), int(meta_h[2, c]))
-                    out[need_tb[i]] = (int(meta_h[0, c]), cig)
-        return out
-
-    def _run_native(self, problems) -> "GlobalResults":
-        """``run`` with its host side in native/cigarbatch.cpp: the padded
-        launch buffers, the all-M screen and the op streams' decode, each
-        one call over flat code buffers."""
         n = len(problems)
+        if not n:
+            return GlobalResults(np.zeros(0, np.int64), np.zeros((0, 2), np.int32),
+                                 np.zeros(1, np.int64))
         qs = [p[0] for p in problems]
         ts = [p[1] for p in problems]
         qlens = np.fromiter(map(len, qs), np.int64, n)
@@ -356,11 +310,11 @@ class BatchGlobal:
 
 
 class GlobalResults(Sequence):
-    """The (score, cigar) of each problem of a ``BatchGlobal.run`` with the
-    native library: score (n,) int64 and the run-length CIGARs as flat
-    (op, len) int32 pairs ``cig`` with offsets ``cig_off`` (n + 1).  As a
-    sequence it gives what the batched Python path's list holds, (score,
-    [(op, len), ...]) a problem, and compares equal to that list."""
+    """The (score, cigar) of each problem of a ``BatchGlobal.run``: score
+    (n,) int64 and the run-length CIGARs as flat (op, len) int32 pairs
+    ``cig`` with offsets ``cig_off`` (n + 1).  As a sequence it gives
+    (score, [(op, len), ...]) a problem, and compares equal to a list of
+    those."""
 
     __slots__ = ("score", "cig", "cig_off")
 

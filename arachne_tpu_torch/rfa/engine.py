@@ -30,8 +30,7 @@ from .types import Alignment, Region
 
 
 # the work counts a traced ``superbatch`` span carries (process_barcodes)
-WORK_COUNTS = ("seeds", "chains", "hits", "rescue_attempts", "rescue_placed", "candidates",
-               "hits_native")
+WORK_COUNTS = ("seeds", "chains", "hits", "rescue_attempts", "rescue_placed", "candidates")
 
 
 def worth_running_rfa(
@@ -185,9 +184,7 @@ def process_barcodes(
     worker's spans (runtime/timers.py), which carries the work that repeats
     multiply as ``WORK_COUNTS``: seed occurrences entering the chainer,
     chains kept, reg2aln jobs (``hits``), rescue SW windows and those that
-    placed a region, alignments entering the RFA tail (``candidates``), and
-    the hits whose CIGAR stage ran its host side in native code
-    (``hits_native``: ``hits``, or 0 without the native library).
+    placed a region, and alignments entering the RFA tail (``candidates``).
     """
     from ..align.pipeline import seq_to_codes
     from ..runtime.timers import TIMERS

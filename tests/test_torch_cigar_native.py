@@ -1,9 +1,8 @@
 """The CIGAR stage's host side in native code (native/cigarbatch.cpp).
 
-``TorchEngine.reg2aln_batch`` with the native library must give, hit by
-hit, the MemAln its batched Python path (the fallback where the library
-does not load) and the scalar ``align/cigar.reg2aln`` give: every field,
-its type included (the records' reprs are compared).  The cases: the
+``TorchEngine.reg2aln_batch`` must give, hit by hit, the MemAln the
+scalar ``align/cigar.reg2aln`` gives: every field, its type included (the
+records' reprs are compared).  The cases: the
 K3/K4 edge set of ops/problems.py as windows of a genome built from its
 targets, on both strands; the no-gap shortcut; the failures (a window
 across l_pac, an empty window, a short fetch, an empty query); leading and
@@ -11,9 +10,9 @@ trailing deletions squeezed; soft clips on both strands; a band doubled up
 to 4w; a seeded random batch on the small reference, also through the
 2-bit pac with the forward cache off.  Besides: the op-stream decode
 against ``decode_traceback_ops`` on K4's plain walk, BatchGlobal's flat
-results against its Python path, the SE mapq and first band against
-``approx_mapq_se``/``infer_bw`` bit for bit, and the ``hits_native``
-count on a traced superbatch.
+results against the scalar ``ksw.global2``, the SE mapq and first band
+against ``approx_mapq_se``/``infer_bw`` bit for bit, and the engine's
+refusal to start without the native library.
 """
 
 import dataclasses
@@ -26,6 +25,8 @@ import pytest
 import torch
 
 from arachne_tpu_torch import native
+from arachne_tpu_torch.align import ksw
+from arachne_tpu_torch.align.ksw import MINUS_INF
 from arachne_tpu_torch.align.cigar import OP_D, OP_S, approx_mapq_se, infer_bw, reg2aln
 from arachne_tpu_torch.align.extend import AlnReg
 from arachne_tpu_torch.config import ArachneConfig
@@ -44,10 +45,6 @@ MAT = OPT.scoring_matrix()
 GAPS = dict(o_del=OPT.o_del, e_del=OPT.e_del, o_ins=OPT.o_ins, e_ins=OPT.e_ins)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NATIVE = os.path.join(REPO, "arachne_tpu_torch", "native")
-
-pytestmark = pytest.mark.skipif(not native.cigar_batch_available(),
-                                reason="the native library does not build here")
-
 
 def index_of(contigs):
     bases = np.array(list("ACGTN"))
@@ -221,14 +218,13 @@ def doubling_jobs(idx, fwd, rng):
 
 
 def assert_same(engine, jobs):
-    """The native path, the batched Python path and the scalar reg2aln,
-    job by job; returns the native MemAln."""
+    """The native path and the scalar reg2aln, job by job; returns the
+    native MemAln."""
     got = engine.reg2aln_batch(jobs)
-    py = engine._reg2aln_python(jobs)
     scalar = [reg2aln(engine.idx, engine.opt, q, ar, engine.mat) for q, ar in jobs]
     assert len(got) == len(jobs)
-    for k, (g, p, s) in enumerate(zip(got, py, scalar)):
-        assert repr(g) == repr(p) == repr(s), k
+    for k, (g, s) in enumerate(zip(got, scalar)):
+        assert repr(g) == repr(s), k
     return got
 
 
@@ -237,7 +233,7 @@ CASES = ("edge set", "no-gap shortcut", "fail", "squeezed deletions", "soft clip
 
 
 @pytest.mark.parametrize("case", CASES)
-def test_native_reg2aln_is_the_python_path_and_the_scalar_one(small, case, monkeypatch):
+def test_native_reg2aln_is_the_scalar_one(small, case, monkeypatch):
     idx, fwd = small
     rng = np.random.default_rng(CASES.index(case) + 100)
     cfg = CFG
@@ -280,8 +276,8 @@ def test_native_reg2aln_is_the_python_path_and_the_scalar_one(small, case, monke
             cigs = [a.cigar for a, _ in mapped if a.is_rev == rev]
             assert cigs and all(c[0][0] == OP_S and c[-1][0] == OP_S for c in cigs)
     elif case == "w2 doubling to 4w":
-        # three waves on each batched path, the third at w2 = 4w
-        assert len(waves) == 6
+        # three waves, the third at w2 = 4w
+        assert len(waves) == 3
         assert all({1, 2} <= {op for op, _ in a.cigar} for a, _ in mapped)
     elif case == "random batch":
         assert len(waves) >= 1 and {a.is_rev for a, _ in mapped} == {False, True}
@@ -324,15 +320,21 @@ def test_native_decode_is_decode_traceback_ops_on_the_edge_set():
     assert any((2, 1) == (a[0], b[0]) for c in want for a, b in zip(c, c[1:]))
 
 
-def test_batch_global_native_results_are_its_python_paths(monkeypatch):
-    """BatchGlobal.run with the library returns GlobalResults, which reads
-    and compares as the Python path's list of (score, cigar)."""
+def test_batch_global_results_are_the_scalar_global2(monkeypatch):
+    """BatchGlobal.run returns GlobalResults, which reads and compares as
+    the list of (score, cigar) the scalar ksw.global2 gives on the same
+    edge problems and on gapped random ones with the engine's band, cut
+    into chunks of 16 and 8.  K3 scores no row of an empty target, so
+    there the score is MINUS_INF, as the kernel tests hold it; the CIGAR
+    is the scalar one."""
     rng = np.random.default_rng(9)
     qs, ts, ws = edge_global_problems(3, 27, 96, 160)
     probs = list(zip(qs, ts, ws.tolist()))
     for i in range(30):
         t = rng.integers(0, 4, int(rng.integers(40, 150))).astype(np.uint8)
-        probs.append((mutate(rng, t, 2, i % 2, (i + 1) % 3), t, int(rng.integers(3, 40))))
+        q = mutate(rng, t, 2, i % 2, (i + 1) % 3)
+        # at least the engine's band floor, |qlen - tlen| + 3
+        probs.append((q, t, max(int(rng.integers(3, 40)), abs(len(q) - len(t)) + 3)))
     bg = BatchGlobal(OPT, torch.device("cpu"))
     monkeypatch.setattr(BatchGlobal, "CHUNK", 16)
     monkeypatch.setattr(BatchGlobal, "CHUNK_Z", 8)
@@ -340,12 +342,13 @@ def test_batch_global_native_results_are_its_python_paths(monkeypatch):
         bg.submit(*p)
     got = bg.run()
     assert isinstance(got, GlobalResults) and len(got) == len(probs)
-    monkeypatch.setattr(native, "get_lib", lambda: None)
-    for p in probs:
-        bg.submit(*p)
-    want = bg.run()
-    assert isinstance(want, list) and got == want and list(got) == want
+    want = [ksw.global2(np.asarray(q, np.uint8), np.asarray(t, np.uint8), MAT, OPT.o_del,
+                        OPT.e_del, OPT.o_ins, OPT.e_ins, w) for q, t, w in probs]
+    want = [(MINUS_INF if len(t) == 0 else sc, cig) for (sc, cig), (_, t, _) in zip(want, probs)]
+    assert any(len(t) == 0 for _, t, _ in probs)
+    assert got == want and list(got) == want
     assert got[-1] == want[-1] and got[2] == want[2]
+    assert any(len(c) > 1 for _, c in want)
 
 
 def test_native_mapq_and_band_are_the_specs_bit_for_bit():
@@ -384,43 +387,15 @@ def test_native_mapq_and_band_are_the_specs_bit_for_bit():
         assert len(set(want_mapq)) > 20
 
 
-def test_a_traced_superbatch_counts_the_hits_run_natively(small, monkeypatch):
-    """hits_native equals hits with the library and is 0 on the loader's
-    fallback, with the same records either way."""
-    from test_torch_engine import make_reads
-
-    from arachne_tpu_torch.rfa.engine import WORK_COUNTS, process_barcodes
-    from arachne_tpu_torch.runtime.timers import TIMERS
-
-    idx, fwd = small
-    rng = np.random.default_rng(41)
-    sets = []
-    for bi in range(3):
-        recs = make_reads(fwd, rng, n_pairs=4, indel=bi == 1)
-        for r in recs:
-            r.barcode = f"N{bi:02d}".encode()
-        sets.append((recs, True))
-    assert "hits_native" in WORK_COUNTS
-
-    def traced():
-        TIMERS.trace(True)
-        try:
-            with TIMERS.in_superbatch(0):
-                res = process_barcodes(idx, CFG, sets, TorchEngine(idx, CFG, "cpu"))
-        finally:
-            TIMERS.trace(False)
-        (sb,) = [r for r in TIMERS.spans() if r.name == "superbatch"]
-        recs = [[(a.contig, a.pos, a.cigar, a.mapq, a.mismatches) for a in x]
-                for r in res for x in r.alignments]
-        return sb.attrs, recs
-
-    attrs, recs = traced()
-    assert attrs["hits"] > 0 and attrs["hits_native"] == attrs["hits"]
+def test_engine_refuses_to_start_without_the_native_library(small, monkeypatch):
+    """Without the native host library the engine raises at construction,
+    naming the sources g++ builds, as the CUDA library's failed build
+    does: no host stage falls back to a Python path."""
+    idx, _ = small
+    TorchEngine(idx, CFG, device="cpu")
     monkeypatch.setattr(native, "get_lib", lambda: None)
-    assert not native.cigar_batch_available()
-    attrs_off, recs_off = traced()
-    assert attrs_off["hits_native"] == 0 and attrs_off["hits"] == attrs["hits"]
-    assert recs_off == recs
+    with pytest.raises(RuntimeError, match=r"native/\*\.cpp"):
+        TorchEngine(idx, CFG, device="cpu")
 
 
 SANITIZED = """
@@ -430,12 +405,13 @@ sys.path[:0] = [{repo!r}, {tests!r}]
 from arachne_tpu_torch import native
 native.lib_path = lambda: {so!r}      # the sanitized build
 native._lib, native._tried = None, False
+from arachne_tpu_torch.align.cigar import reg2aln
 from arachne_tpu_torch.config import ArachneConfig
 from arachne_tpu_torch.index import FMIndex, build_fmindex, pack_reference, unpack_2bit
 from arachne_tpu_torch.ops.engine import TorchEngine
 from test_torch_cigar_native import edge_jobs, fail_jobs, random_jobs
 
-assert native.cigar_batch_available(), "the sanitized library did not load"
+assert native.get_lib() is not None, "the sanitized library did not load"
 rng = np.random.default_rng(8)
 packed = pack_reference([("a", "", "".join("ACGT"[i] for i in rng.integers(0, 4, 6000))),
                          ("b", "", "".join("ACGT"[i] for i in rng.integers(0, 4, 3000)))])
@@ -446,7 +422,8 @@ for ix, jobs in ((idx, random_jobs(idx, fwd, rng, 150) + fail_jobs(idx, fwd, rng
                  (eidx, ejobs)):
     eng = TorchEngine(ix, ArachneConfig(), device="cpu")
     got = eng.reg2aln_batch(jobs)
-    assert [repr(a) for a in got] == [repr(a) for a in eng._reg2aln_python(jobs)]
+    assert [repr(a) for a in got] == [repr(reg2aln(ix, eng.opt, q, ar, eng.mat))
+                                      for q, ar in jobs]
 print("SANITIZED_OK")
 """
 

@@ -8,8 +8,10 @@ where kernels S1 and S3 run as their plain versions:
     collector, narrow and wide, on reads with no SMEM, with many pass-2
     jobs and with pass-1 and pass-3 seeds that tie in (qb, qe);
   * the redo path of undersized buffers (MAXC=2, MAXS=4);
+  * the host collector's flat entry against its lists, overflowing reads
+    included (MAXS=4);
   * mem_chain_flat_native on a SeedBatch against mem_chain_batch_native on
-    its lists, and batch_align_single by each route;
+    its lists, and batch_align_single with each seeder;
   * the default of resolve_device_seeding on each kind of device.
 
 Integer outputs: tolerance 0."""
@@ -27,7 +29,9 @@ from arachne_tpu.align.smem import collect_seeds
 from arachne_tpu.ops import fm_rank as jfm
 from arachne_tpu.ops import fm_seed as jfs
 from arachne_tpu_torch.align import chain_native
-from arachne_tpu_torch.align.smem_native import collect_seeds_native, smem_available
+from arachne_tpu_torch.align.smem_native import (
+    collect_seeds_native, collect_seeds_native_flat, smem_available,
+)
 from arachne_tpu_torch.config import MemOptions
 from arachne_tpu_torch.index import FMIndex, build_fmindex, pack_reference
 from arachne_tpu_torch.ops import fm_rank as tfm
@@ -192,23 +196,43 @@ def test_chain_flat_entry_equals_list_entry(indexes, reads, flat):
     assert sum(map(len, by_flat)) >= len(reads) - 3
 
 
-@pytest.mark.parametrize("native_chain", [True, False], ids=["native-chain", "python-chain"])
-def test_batch_align_single_by_each_route(indexes, reads, monkeypatch, native_chain):
-    """Host seeding, and the flat device seeds through the native chainer
-    or (without it) through their lists and the Python chainer: the same
-    regions."""
+def test_host_flat_entry_is_the_native_lists_flattened(indexes, reads):
+    """collect_seeds_native_flat gives, row for row, the flat arrays of
+    collect_seeds_native's lists, with MAXS=4 so that reads overflow and
+    the scalar collector's rows are spliced in at their place."""
+    idx, _ = indexes
+    for MAXS in (4, 256):
+        read, rows = collect_seeds_native_flat(idx, reads, OPT, MAXS=MAXS)
+        lists = collect_seeds_native(idx, reads, OPT, MAXS=MAXS)
+        k, s, qb, qe, off = chain_native._flatten_mems(lists)
+        assert read.dtype == rows.dtype == np.int64 and rows.shape == (len(k), 5)
+        assert np.array_equal(np.bincount(read, minlength=len(reads)), np.diff(off))
+        assert np.all(np.diff(read) >= 0)
+        for got, want in zip((rows[:, 0], rows[:, 2], rows[:, 3], rows[:, 4]), (k, s, qb, qe)):
+            assert np.array_equal(got, want)
+        assert rows[:, 1].tolist() == [m.l for ms in lists for m in ms]
+        batch = tfs.SeedBatch.of_rows(len(reads), read, rows)
+        assert [fields(m) for m in batch.to_lists()] == [fields(m) for m in lists]
+    # the reads that overflow four seeds hold more than four
+    assert max(len(m) for m in lists) > 4
+
+
+@pytest.mark.parametrize("device_seeds", [True, False], ids=["device-seeds", "host-seeds"])
+def test_batch_align_single_by_each_route(indexes, reads, device_seeds):
+    """The flat device seeds and the host collector's flat seeds go through
+    the one native chainer call: the regions of the scalar mem_align1_core
+    (align.pipeline.align_single), the same either way."""
+    from arachne_tpu_torch.align.pipeline import align_single
     from arachne_tpu_torch.ops.batch import batch_align_single
     from arachne_tpu_torch.ops.sw_extend import BatchExtender
 
     idx, _ = indexes
     some = reads[:8]
     ext = BatchExtender(OPT, torch.device("cpu"))
-    host = batch_align_single(idx, OPT, some, ext)
-    if not native_chain:
-        monkeypatch.setattr(chain_native, "chain_available", lambda: False)
-    dev = batch_align_single(idx, OPT, some, ext, dfm=tfm.DeviceFMIndex.from_host(idx, "cpu"))
-    assert dev == host
-    assert sum(len(r) for r in dev) >= len(some) - 3
+    dfm = tfm.DeviceFMIndex.from_host(idx, "cpu") if device_seeds else None
+    got = batch_align_single(idx, OPT, some, ext, dfm=dfm)
+    assert got == [align_single(idx, OPT, r) for r in some]
+    assert sum(len(r) for r in got) >= len(some) - 3
 
 
 @pytest.mark.parametrize("device,default", [(torch.device("cuda"), True),
