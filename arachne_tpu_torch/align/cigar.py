@@ -182,6 +182,43 @@ class MemAln:
     alt_sc: int = 0
 
 
+@dataclass
+class FlatAlns:
+    """The fields of MemAln records the RFA stage reads, for a list of jobs
+    as flat arrays: job j's CIGAR is ``cigar[cig_off[j]:cig_off[j + 1]]``,
+    (op, len) rows; an unmapped job has none, NM -1 and rid -1."""
+
+    cigar: np.ndarray     # (k, 2) int32
+    cig_off: np.ndarray   # (n + 1,) int64
+    nm: np.ndarray        # (n,) int64
+    rid: np.ndarray       # (n,) int64
+    is_rev: np.ndarray    # (n,) bool
+
+    @classmethod
+    def of(cls, alns: List[MemAln]) -> "FlatAlns":
+        n = len(alns)
+        cig_off = np.zeros(n + 1, np.int64)
+        np.cumsum([len(a.cigar) for a in alns], out=cig_off[1:])
+        pairs = [p for a in alns for p in a.cigar]
+        return cls(
+            np.array(pairs, np.int32).reshape(-1, 2), cig_off,
+            np.array([a.NM for a in alns], np.int64), np.array([a.rid for a in alns], np.int64),
+            np.array([a.is_rev for a in alns], bool),
+        )
+
+    def spread(self, rows: np.ndarray, n: int) -> "FlatAlns":
+        """These records as rows ``rows`` of n jobs, the others unmapped."""
+        if len(rows) == n:
+            return self
+        lens = np.zeros(n, np.int64)
+        lens[rows] = np.diff(self.cig_off)
+        cig_off = np.zeros(n + 1, np.int64)
+        np.cumsum(lens, out=cig_off[1:])
+        nm, rid, is_rev = np.full(n, -1, np.int64), np.full(n, -1, np.int64), np.zeros(n, bool)
+        nm[rows], rid[rows], is_rev[rows] = self.nm, self.rid, self.is_rev
+        return FlatAlns(self.cigar, cig_off, nm, rid, is_rev)
+
+
 def approx_mapq_se(opt: MemOptions, a: AlnReg) -> int:
     """mem_approx_mapq_se (bwamem.c:950-974)."""
     sub = a.sub if a.sub else opt.min_seed_len * opt.a

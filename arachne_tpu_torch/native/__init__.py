@@ -31,15 +31,14 @@ _lock = threading.Lock()
 
 
 _SOURCES = [
-    "sais.cpp", "smem.cpp", "chain.cpp", "ropebwt.cpp", "rfa_tail.cpp",
-    "cigarwalk.cpp", "cigarbatch.cpp",
+    "sais.cpp", "smem.cpp", "chain.cpp", "ropebwt.cpp", "rfa_tail.cpp", "cigarbatch.cpp",
 ]
 
 # Expected ABI of the compiled library (ARACHNE_NATIVE_ABI in ropebwt.cpp).
 # A cached .so that predates a signature change reports an older value (or
 # lacks the symbol entirely) and is rejected rather than loaded with
 # mismatched ctypes argtypes, which would corrupt memory silently.
-_EXPECTED_ABI = 9
+_EXPECTED_ABI = 10
 
 
 def _cpu_model() -> str:
@@ -113,6 +112,27 @@ def _bind_cigar_batch(lib: ctypes.CDLL) -> None:
     lib.global_nogap_batch.argtypes = [i64, i64p, u8p, i64p, u8p, i64p, i64p, i64p]
     lib.global_decode_batch.argtypes = [i64, i64p, i64p, i8p, i64, i64, i64p, i64p,
                                         i32p, i64p]
+
+
+def _bind_rfa(lib: ctypes.CDLL) -> None:
+    """argtypes of native/rfa_tail.cpp's ``rfa_superbatch`` (rfa/batch.py)."""
+    i32 = ctypes.c_int32
+    i64 = ctypes.c_int64
+    f64 = ctypes.c_double
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    lib.rfa_superbatch.argtypes = (
+        [i64, i64p, i64p, u8p]                        # barcodes, their reads, the reads' hits
+        + [u8p, i64p, ctypes.POINTER(ctypes.c_uint64)]  # read codes, offsets, jitter seeds
+        + [i64, i64p, i64p, i32p, i32p, i32p]         # hits: chain pos, aend, score, id, mate
+        + [i32p, i64p, i64p, i64p, u8p]               # reg2aln: cigar, offsets, NM, rid, is_rev
+        + [u8p, u8p, i64, i64p, i64p, i64]            # fwd, pac, l_pac, contigs
+        + [i64p, i64p, f64, f64, i32, i32, i32]       # centromeres, options
+        + [i64p, i64p, i32p, ctypes.POINTER(ctypes.c_double)]  # loc_cap, outputs
+        + [i64p, i32p, i64p, i32p, i32p, i32]         # loci, n_mol, rc, threads
+    )
+    lib.rfa_superbatch.restype = ctypes.c_int
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
@@ -254,46 +274,9 @@ def _load() -> Optional[ctypes.CDLL]:
         except AttributeError:
             pass  # stale .so without incremental-build support
         try:
-            i32 = ctypes.c_int32
-            i32p_ = ctypes.POINTER(ctypes.c_int32)
-            i64p2 = ctypes.POINTER(ctypes.c_int64)
-            f64p2 = ctypes.POINTER(ctypes.c_double)
-            u8p2 = ctypes.POINTER(ctypes.c_uint8)
-            u64p2 = ctypes.POINTER(ctypes.c_uint64)
-            lib.rfa_tail.argtypes = (
-                [i32, i32]
-                + [i64p2, i64p2, f64p2, f64p2]            # pos/aend/logp/score
-                + [i32p_] * 5                              # mism/indels/sclip/slen/seqlen
-                + [u8p2, i32p_, i32p_, i32p_]              # rev/contig/aln_id/read_of
-                + [i64p2, i64p2, i64p2, i32p_, u64p2]      # locs/locs_off/aln_off/mate_of/jitter
-                + [ctypes.c_double, ctypes.c_double, i32, i32, i32]
-                + [i64p2, i64p2]                           # centromeres
-                + [u8p2, u8p2, u8p2, i32p_, i32p_, u8p2]   # active/proper/pick/mapq/molid/amol
-                + [f64p2, f64p2, f64p2, i32p_]             # mconf/mdiff/sum/mate
-                + [i32p_, f64p2, u8p2, i32p_, f64p2]       # sb slot/score/proper/reads/conf
-                + [i32p_] * 4                              # copies/in/out/uniq
-                + [f64p2, i32p_, i32p_]                    # md_score/reads_in_mol/n_mol
-            )
-            lib.rfa_tail.restype = ctypes.c_int
+            _bind_rfa(lib)
         except AttributeError:
-            pass  # stale .so without the RFA tail
-        try:
-            i32p_c = ctypes.POINTER(ctypes.c_int32)
-            i64p_c = ctypes.POINTER(ctypes.c_int64)
-            u8p_c = ctypes.POINTER(ctypes.c_uint8)
-            lib.cigar_walk_batch.argtypes = [
-                i32p_c, i64p_c,                 # cig, cig_off
-                u8p_c, i64p_c,                  # ref, ref_off
-                u8p_c, i64p_c,                  # read, read_off
-                u8p_c, i64p_c, i64p_c,          # rev, ref_start, ref_end
-                i32p_c,                         # edit_dist
-                ctypes.c_int64,                 # n
-                i32p_c, i64p_c, i32p_c, i32p_c, # counters, locs, rlocs, n
-                ctypes.c_int32,                 # n_threads
-            ]
-            lib.cigar_walk_batch.restype = ctypes.c_int
-        except AttributeError:
-            pass  # stale .so without the cigar walk
+            pass  # a build without RFA's host stage
         try:
             _bind_cigar_batch(lib)
         except AttributeError:
@@ -302,50 +285,6 @@ def _load() -> Optional[ctypes.CDLL]:
     except Exception:
         _lib = None
     return _lib
-
-
-def cigar_walk_available() -> bool:
-    lib = get_lib()
-    return lib is not None and hasattr(lib, "cigar_walk_batch")
-
-
-def cigar_walk_batch_native(
-    cig: np.ndarray, cig_off: np.ndarray,
-    ref: np.ndarray, ref_off: np.ndarray,
-    read: np.ndarray, read_off: np.ndarray,
-    rev: np.ndarray, ref_start: np.ndarray, ref_end: np.ndarray,
-    edit_dist: np.ndarray, n_threads: int = 1,
-):
-    """Batched GetAlignments cigar walk (native/cigarwalk.cpp).
-
-    Returns (counters (n,6) int32, mism_locs int64, mism_read_locs int32,
-    mism_n (n,) int32); the locus arrays are indexed at each hit's
-    read_off base.  None when the native library is unavailable."""
-    lib = get_lib()
-    if lib is None or not hasattr(lib, "cigar_walk_batch"):
-        return None
-    n = len(cig_off) - 1
-    counters = np.zeros((n, 6), np.int32)
-    mism_locs = np.zeros(int(read_off[-1]), np.int64)
-    mism_read_locs = np.zeros(int(read_off[-1]), np.int32)
-    mism_n = np.zeros(n, np.int32)
-    i32p = ctypes.POINTER(ctypes.c_int32)
-    i64p = ctypes.POINTER(ctypes.c_int64)
-    u8p = ctypes.POINTER(ctypes.c_uint8)
-    rc = lib.cigar_walk_batch(
-        cig.ctypes.data_as(i32p), cig_off.ctypes.data_as(i64p),
-        ref.ctypes.data_as(u8p), ref_off.ctypes.data_as(i64p),
-        read.ctypes.data_as(u8p), read_off.ctypes.data_as(i64p),
-        rev.ctypes.data_as(u8p), ref_start.ctypes.data_as(i64p),
-        ref_end.ctypes.data_as(i64p), edit_dist.ctypes.data_as(i32p),
-        np.int64(n),
-        counters.ctypes.data_as(i32p), mism_locs.ctypes.data_as(i64p),
-        mism_read_locs.ctypes.data_as(i32p), mism_n.ctypes.data_as(i32p),
-        np.int32(n_threads),
-    )
-    if rc != 0:
-        return None
-    return counters, mism_locs, mism_read_locs, mism_n
 
 
 def _ptr(a: np.ndarray, ctype):

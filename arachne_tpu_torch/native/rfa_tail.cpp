@@ -1,28 +1,37 @@
-// Copy of arachne_tpu/native/rfa_tail.cpp, the JAX package's host code.
-// Native RFA finish tail: tagBestAlignments -> inferMolecules ->
+// Copy of arachne_tpu/native/rfa_tail.cpp, the JAX package's host code,
+// grown into RFA's whole host stage for a superbatch of barcodes.
+// For every hit: GetAlignments' walk of its CIGAR against its reference
+// window (aligner.go:1484-1631: mismatch loci, indel and soft-clip
+// counters), its log probabilities and the best-17 filter.  For every
+// barcode: tagBestAlignments -> inferMolecules ->
 // markBestAlignmentForReadInMolecule -> scrapMolecules -> greedy optimize ->
-// estimateMapQualities, for one barcode, on flat arrays.
+// estimateMapQualities on the kept hits, on flat arrays.
 //
-// Statement-faithful port of rfa/molecules.py, rfa/optimizer.py and
-// rfa/mapq.py (themselves cited ports of aligner.go:1397-1481, :1300-1393,
-// :991-1016, :1065-1298, :697-922).  Bit parity requirements honored:
+// Statement-faithful port of rfa/candidates.py, rfa/molecules.py,
+// rfa/optimizer.py and rfa/mapq.py (themselves cited ports of
+// aligner.go:1397-1481, :1300-1393, :991-1016, :1065-1298, :697-922).  Bit
+// parity requirements honored:
 //   * OrderedMap iteration order incl. swap-remove deletion
 //     (ordered_map.go:39-51) — deletion order changes later fast_score
 //     sweeps and therefore outputs;
 //   * float accumulation order identical to the Python statement order
-//     (alignment_change sums, dna_length sums, top-15 probability sum);
+//     (alignment_change sums, dna_length sums, top-15 probability sum,
+//     the log probabilities without fused multiply-adds);
 //   * the md5-seeded jitter stream (JitterRand): seeds computed by the
 //     caller (hashlib md5), doubles generated here with the same
 //     splitmix64 -> (z >> 11) * 2^-53 mapping (utils/rng.py).
 //
-// The Python tail remains the reference implementation; parity is asserted
-// field-for-field in tests/test_rfa_native_tail.py and end-to-end by the
+// The Python forms remain the reference implementation; parity is asserted
+// field for field in tests/test_torch_rfa_native.py and end to end by the
 // byte-identity e2e tests.
 
-#include <cstdint>
-#include <cmath>
 #include <algorithm>
+#include <atomic>
+#include <cmath>
+#include <cstdint>
+#include <cstring>
 #include <limits>
+#include <thread>
 #include <unordered_map>
 #include <vector>
 
@@ -788,53 +797,387 @@ static int estimate_map_qualities(State& st, bool have_molecules) {
     return 0;
 }
 
-}  // namespace
 
-extern "C" int rfa_tail(
-    int32_t R, int32_t A,
-    const int64_t* pos, const int64_t* aend, const double* logp,
-    const double* score, const int32_t* mismatches, const int32_t* indels,
-    const int32_t* soft_clipped, const int32_t* soft_len,
-    const int32_t* seq_len, const uint8_t* rev, const int32_t* contig,
-    const int32_t* aln_id, const int32_t* read_of, const int64_t* locs,
-    const int64_t* locs_off, const int64_t* aln_off, const int32_t* mate_of,
-    const uint64_t* jitter_seed, double improper, double ref_len,
-    int32_t run_rfa, int32_t temp_steps, int32_t anneal_factor,
-    const int64_t* cen_start, const int64_t* cen_end,
-    uint8_t* out_active, uint8_t* out_proper, uint8_t* out_bwa_pick,
-    int32_t* out_mapq, int32_t* out_mol_id, uint8_t* out_active_mol,
-    double* out_mol_conf, double* out_mol_diff, double* out_sum_move,
-    int32_t* out_mate_slot, int32_t* out_sb_slot, double* out_sb_score,
-    uint8_t* out_sb_proper, int32_t* out_sb_mol_reads, double* out_sb_mol_conf,
-    int32_t* out_copies, int32_t* out_copies_in, int32_t* out_copies_out,
-    int32_t* out_uniq_mols, double* out_md_score, int32_t* out_reads_in_mol,
-    int32_t* out_n_molecules) {
-    In in{R, A, pos, aend, logp, score, mismatches, indels, soft_clipped,
-          soft_len, seq_len, rev, contig, aln_id, read_of, locs, locs_off,
-          aln_off, mate_of, jitter_seed, improper, ref_len, run_rfa,
-          temp_steps, anneal_factor, cen_start, cen_end};
-    Out out{out_active, out_proper, out_bwa_pick, out_mapq, out_mol_id,
-            out_active_mol, out_mol_conf, out_mol_diff, out_sum_move,
-            out_mate_slot, out_sb_slot, out_sb_score, out_sb_proper,
-            out_sb_mol_reads, out_sb_mol_conf, out_copies, out_copies_in,
-            out_copies_out, out_uniq_mols, out_md_score, out_reads_in_mol,
-            out_n_molecules};
+// One barcode's tail: tagBestAlignments, then with run_rfa the molecules,
+// the optimizer and the molecule-aware MAPQ, else the MAPQ alone.
+static int run_tail(const In& in, Out& out) {
     State st(in, out);
     vector<vector<int32_t>> positions;
     tag_best(st, positions);
-    if (run_rfa) {
+    int rc;
+    if (in.run_rfa) {
         infer_molecules(st, positions);
         mark_best(st);
         scrap(st);
         set_molecule_differences(st);
         optimize(st);
-        int rc = estimate_map_qualities(st, true);
-        if (rc != 0) return rc;
-        *out_n_molecules = (int32_t)st.mols.size();
+        rc = estimate_map_qualities(st, true);
+        *out.n_molecules = (int32_t)st.mols.size();
     } else {
-        int rc = estimate_map_qualities(st, false);
-        if (rc != 0) return rc;
-        *out_n_molecules = 0;
+        rc = estimate_map_qualities(st, false);
+        *out.n_molecules = 0;
+    }
+    return rc;
+}
+
+// ------------------------------------------------------------ the superbatch
+
+// The output rows of rfa_superbatch, a column a hit: rfa/batch.py reads
+// them by these numbers.
+enum I32Row {
+    MATCHES, MISMATCHES, INDELS, SOFT_CLIPPED, SOFT_LEN, N_LOCS, KEPT,
+    ACTIVE, PROPER, BWA_PICK, MAPQ, MOL_ID, ACTIVE_MOL, MATE, SECOND_BEST,
+    SB_PROPER, SB_MOL_READS, COPIES, COPIES_IN, COPIES_OUT, UNIQ_MOLS,
+    READS_IN_MOL, N_I32
+};
+enum F64Row {
+    LOGP, UPDATED_LOGP, MOL_CONF, MOL_DIFF, SUM_MOVE, SB_SCORE, SB_MOL_CONF,
+    MD_SCORE, N_F64
+};
+
+struct Batch {
+    const int64_t* bc_read_off;   // (n_bc+1) into the reads
+    const int64_t* read_hit_off;  // (n_reads+1) into the hits
+    const uint8_t* run_rfa;       // (n_bc)
+    const uint8_t* codes;         // the reads' codes, as sequenced
+    const int64_t* code_off;      // (n_reads+1)
+    const uint64_t* jitter;       // (n_reads) md5 seeds of the read names
+    const int64_t* ch_pos;        // the chain's contig coordinates (H)
+    const int64_t* ch_aend;
+    const int32_t* ch_score;
+    const int32_t* hit_id;
+    const int32_t* mate_id;
+    const int32_t* cig;           // (op, len) pairs
+    const int64_t* cig_off;       // (H+1), pairs
+    const int64_t* nm;            // reg2aln's NM, -1 for none
+    const int64_t* rid;           // reg2aln's contig, -1 for none
+    const uint8_t* is_rev;
+    const uint8_t* fwd;           // forward codes, or null: read the 2-bit pac
+    const uint8_t* pac;
+    int64_t l_pac;
+    const int64_t* contig_off;    // (n_contigs)
+    const int64_t* contig_len;
+    int64_t n_contigs;
+    const int64_t* cen_start;     // (n_contigs+1) by rid + 1, -1 = none
+    const int64_t* cen_end;
+    double improper, ref_len;
+    int32_t delta, temp_steps, anneal_factor;
+    int64_t H;
+    const int64_t* loc_cap;       // (H) where hit h's loci start, before compaction
+    int64_t* coords;              // (2, H) pos, aend
+    int32_t* i32;                 // (N_I32, H)
+    double* f64;                  // (N_F64, H)
+    int64_t* locs;
+    int32_t* rlocs;
+    int32_t* n_mol;               // (n_bc)
+    int32_t* rc;                  // (n_bc)
+};
+
+inline uint8_t pac_base(const uint8_t* pac, int64_t p) {
+    return (pac[p >> 2] >> ((~p & 3) << 1)) & 3;
+}
+
+// The reference window [beg, end) as fetch_seq_batch gives it -- clamped
+// to the contig that holds its middle, on that strand -- then oriented as
+// the read: reverse-complemented for a reversed hit.
+static void fetch_window(const Batch& B, int64_t beg, int64_t end, bool rev,
+                         vector<uint8_t>& out) {
+    out.clear();
+    const int64_t mid = (beg + end) >> 1;
+    if (end < beg) std::swap(beg, end);
+    const int64_t two = B.l_pac << 1;
+    if (mid < 0 || mid >= two) return;
+    const bool mid_rev = mid >= B.l_pac;
+    const int64_t fmid = mid_rev ? two - 1 - mid : mid;
+    const int64_t r =
+        std::upper_bound(B.contig_off, B.contig_off + B.n_contigs, fmid) - B.contig_off - 1;
+    if (r < 0) return;
+    int64_t far_beg = B.contig_off[r], far_end = far_beg + B.contig_len[r];
+    if (mid_rev) {
+        const int64_t fb = two - far_end;
+        far_end = two - far_beg;
+        far_beg = fb;
+    }
+    beg = std::max(beg, far_beg);
+    end = std::min(end, far_end);
+    if (end <= beg) return;
+    const int64_t n = end - beg;
+    const bool strand_rev = beg >= B.l_pac;
+    out.resize((size_t)n);
+    for (int64_t i = 0; i < n; ++i) {
+        const int64_t p = strand_rev ? two - 1 - (beg + i) : beg + i;
+        const uint8_t c = B.fwd ? B.fwd[p] : pac_base(B.pac, p);
+        const uint8_t s = strand_rev ? (uint8_t)(3 - c) : c;
+        if (rev)
+            out[(size_t)(n - 1 - i)] = (uint8_t)(3 - s);
+        else
+            out[(size_t)i] = s;
+    }
+}
+
+// GetAlignments' walk of one hit (aligner.go:1511-1631): the final
+// coordinates, the M-segment mismatch loci (reference and read), the
+// indel and soft-clip counters -- reversed hits walk the CIGAR back to
+// front -- and the log probabilities of rfa/candidates.py, in its order
+// of float operations.
+__attribute__((optimize("fp-contract=off")))
+static void walk_hit(const Batch& B, int64_t h, const uint8_t* read, int64_t read_len,
+                     vector<uint8_t>& ref) {
+    const int64_t H = B.H;
+    const bool rev = B.is_rev[h] != 0;
+    const int64_t pos = B.ch_pos[h], aend = B.ch_aend[h];
+    const bool swap = pos != -1 && rev;
+    B.coords[h] = swap ? aend + 1 : pos;
+    B.coords[H + h] = swap ? pos + 1 : aend;
+    const int64_t rstart = rev ? aend + 1 : pos, rend = rev ? pos + 1 : aend;
+    const int64_t c0 = B.cig_off[h], c1 = B.cig_off[h + 1];
+    ref.clear();
+    if (c1 > c0) {
+        const int64_t off = B.rid[h] >= 0 ? B.contig_off[B.rid[h]] : 0;
+        fetch_window(B, rstart + off, rend + off, rev, ref);
+    }
+    const int64_t ref_len = (int64_t)ref.size();
+    int64_t* locs = B.locs + B.loc_cap[h];
+    int32_t* rlocs = B.rlocs + B.loc_cap[h];
+    int64_t matches = 0, indels = 0, indel_len = 0, sc = 0, sc_len = 0;
+    int64_t ref_o = 0, read_o = 0;
+    int32_t n_locs = 0;
+    for (int64_t step = 0; step < c1 - c0; ++step) {
+        const int64_t k = rev ? (c1 - 1 - step) : (c0 + step);
+        const int32_t op = B.cig[2 * k], ln = B.cig[2 * k + 1];
+        if (op == 0) {
+            matches += ln;
+            int64_t limit = std::min<int64_t>(ln, std::min(ref_len - ref_o, read_len - read_o));
+            for (int64_t m = 0; m < limit; ++m) {
+                if (ref[(size_t)(ref_o + m)] != read[read_o + m]) {
+                    locs[n_locs] = rev ? (rend - (ref_o + m)) : (ref_o + rstart + m);
+                    rlocs[n_locs] = (int32_t)(read_o + m);
+                    ++n_locs;
+                }
+            }
+            ref_o += ln;
+            read_o += ln;
+        } else if (op == 1) {
+            indels += 1;
+            indel_len += ln;
+            read_o += ln;
+        } else if (op == 2) {
+            indels += 1;
+            indel_len += ln;
+            ref_o += ln;
+        } else if (op == 3) {
+            sc += 1;
+            sc_len += ln;
+            read_o += ln;
+        }
+    }
+    int64_t mismatches = (B.nm[h] >= 0 ? B.nm[h] : 0) - indel_len;
+    matches -= mismatches;
+    if (mismatches < 0) mismatches = 0;
+    int32_t* I = B.i32;
+    I[MATCHES * H + h] = (int32_t)matches;
+    I[MISMATCHES * H + h] = (int32_t)mismatches;
+    I[INDELS * H + h] = (int32_t)indels;
+    I[SOFT_CLIPPED * H + h] = (int32_t)sc;
+    I[SOFT_LEN * H + h] = (int32_t)sc_len;
+    I[N_LOCS * H + h] = n_locs;
+    // score_alignment(aln, None, 0.0, improper) - improper, and the
+    // updated probability with its 2.0 a mismatch locus
+    double s = 0.0;
+    s += (double)mismatches * -2.0 + (double)indels * -3.0;
+    if (sc > 0) {
+        s -= 5.0 * (double)sc;
+        s -= (double)sc_len * 0.5;
+    }
+    s += B.improper;
+    s += 0.0;
+    const double logp = s - B.improper;
+    B.f64[LOGP * H + h] = logp;
+    B.f64[UPDATED_LOGP * H + h] = logp + 2.0 * (double)n_locs;
+}
+
+// per-thread buffers, reused from barcode to barcode
+struct Scratch {
+    vector<uint8_t> window;
+    vector<int32_t> kept;
+    vector<int64_t> aln_off, pos, aend, locs, locs_off;
+    vector<int32_t> mate_of, mism, indels, sclip, slen, seqlen, contig, aln_id, read_of;
+    vector<double> logp, score;
+    vector<uint8_t> rev;
+    vector<uint8_t> o_active, o_proper, o_pick, o_amol, o_sbp;
+    vector<int32_t> o_mapq, o_molid, o_mate, o_sb, o_sbr, o_cp, o_cpi, o_cpo, o_uniq, o_rim;
+    vector<double> o_mconf, o_mdiff, o_sum, o_sbs, o_sbc, o_mds;
+};
+
+template <class T>
+static T* fill(vector<T>& v, size_t n, T value) {
+    v.assign(n, value);
+    return v.data();
+}
+
+static void run_barcode(const Batch& B, int64_t b, Scratch& s) {
+    const int64_t H = B.H;
+    int32_t* I = B.i32;
+    double* F = B.f64;
+    const int64_t r0 = B.bc_read_off[b], r1 = B.bc_read_off[b + 1];
+    const int64_t R = r1 - r0;
+    // the walk, and the best-17 filter against each read's best chain score
+    // (aligner.go:1586-1629)
+    for (int64_t r = r0; r < r1; ++r) {
+        const uint8_t* read = B.codes + B.code_off[r];
+        const int64_t read_len = B.code_off[r + 1] - B.code_off[r];
+        int32_t best = 0;
+        for (int64_t h = B.read_hit_off[r]; h < B.read_hit_off[r + 1]; ++h) {
+            walk_hit(B, h, read, read_len, s.window);
+            if (B.ch_score[h] > best) best = B.ch_score[h];
+        }
+        for (int64_t h = B.read_hit_off[r]; h < B.read_hit_off[r + 1]; ++h)
+            I[KEPT * H + h] = B.ch_score[h] >= best - B.delta ? 1 : 0;
+    }
+    // the kept hits enter the tail, read by read
+    s.kept.clear();
+    s.aln_off.assign((size_t)R + 1, 0);
+    s.mate_of.assign((size_t)R, 0);
+    for (int64_t r = 0; r < R; ++r) {
+        s.aln_off[r] = (int64_t)s.kept.size();
+        for (int64_t h = B.read_hit_off[r0 + r]; h < B.read_hit_off[r0 + r + 1]; ++h)
+            if (I[KEPT * H + h]) s.kept.push_back((int32_t)h);
+        s.mate_of[r] = (int64_t)s.kept.size() > s.aln_off[r] ? B.mate_id[s.kept[s.aln_off[r]]]
+                                                              : (int32_t)(r ^ 1);
+    }
+    s.aln_off[R] = (int64_t)s.kept.size();
+    const size_t A = s.kept.size();
+    s.pos.resize(A); s.aend.resize(A); s.logp.resize(A); s.score.resize(A);
+    s.mism.resize(A); s.indels.resize(A); s.sclip.resize(A); s.slen.resize(A);
+    s.seqlen.resize(A); s.rev.resize(A); s.contig.resize(A); s.aln_id.resize(A);
+    s.read_of.resize(A); s.locs_off.assign(A + 1, 0); s.locs.clear();
+    for (size_t a = 0; a < A; ++a) {
+        const int64_t h = s.kept[a];
+        s.pos[a] = B.coords[h];
+        s.aend[a] = B.coords[H + h];
+        s.logp[a] = F[LOGP * H + h];
+        s.score[a] = (double)B.ch_score[h];
+        s.mism[a] = I[MISMATCHES * H + h];
+        s.indels[a] = I[INDELS * H + h];
+        s.sclip[a] = I[SOFT_CLIPPED * H + h];
+        s.slen[a] = I[SOFT_LEN * H + h];
+        s.rev[a] = B.is_rev[h];
+        s.contig[a] = (int32_t)(B.rid[h] + 1);
+        s.aln_id[a] = B.hit_id[h];
+        s.locs.insert(s.locs.end(), B.locs + B.loc_cap[h],
+                      B.locs + B.loc_cap[h] + I[N_LOCS * H + h]);
+        s.locs_off[a + 1] = (int64_t)s.locs.size();
+    }
+    for (int64_t r = 0; r < R; ++r) {
+        const int64_t len = B.code_off[r0 + r + 1] - B.code_off[r0 + r];
+        for (int64_t a = s.aln_off[r]; a < s.aln_off[r + 1]; ++a) {
+            s.seqlen[a] = (int32_t)len;
+            s.read_of[a] = (int32_t)r;
+        }
+    }
+    if (s.locs.empty()) s.locs.push_back(0);
+    In in{(int32_t)R, (int32_t)A, s.pos.data(), s.aend.data(), s.logp.data(),
+          s.score.data(), s.mism.data(), s.indels.data(), s.sclip.data(),
+          s.slen.data(), s.seqlen.data(), s.rev.data(), s.contig.data(),
+          s.aln_id.data(), s.read_of.data(), s.locs.data(), s.locs_off.data(),
+          s.aln_off.data(), s.mate_of.data(), B.jitter + r0, B.improper,
+          B.ref_len, B.run_rfa[b], B.temp_steps, B.anneal_factor,
+          B.cen_start, B.cen_end};
+    const double conf0 = 0.00075 * 0.025;   // Alignment.molecule_confidence's default
+    Out out{fill<uint8_t>(s.o_active, A, 0), fill<uint8_t>(s.o_proper, A, 0),
+            fill<uint8_t>(s.o_pick, A, 0), fill<int32_t>(s.o_mapq, A, 0),
+            fill<int32_t>(s.o_molid, A, -1), fill<uint8_t>(s.o_amol, A, 0),
+            fill<double>(s.o_mconf, A, conf0), fill<double>(s.o_mdiff, A, 0.0),
+            fill<double>(s.o_sum, A, 1.0), fill<int32_t>(s.o_mate, A, -1),
+            fill<int32_t>(s.o_sb, A, -1), fill<double>(s.o_sbs, A, 0.0),
+            fill<uint8_t>(s.o_sbp, A, 0), fill<int32_t>(s.o_sbr, A, 0),
+            fill<double>(s.o_sbc, A, 0.0), fill<int32_t>(s.o_cp, A, 0),
+            fill<int32_t>(s.o_cpi, A, 0), fill<int32_t>(s.o_cpo, A, 0),
+            fill<int32_t>(s.o_uniq, A, 0), fill<double>(s.o_mds, A, 0.0),
+            fill<int32_t>(s.o_rim, A, 0), B.n_mol + b};
+    B.rc[b] = run_tail(in, out);
+    // every hit of the barcode: a default Alignment's values, then the
+    // tail's for the kept ones, slots turned into hit numbers
+    const int64_t h0 = B.read_hit_off[r0], h1 = B.read_hit_off[r1];
+    for (int row = ACTIVE; row < N_I32; ++row)
+        std::fill(I + row * H + h0, I + row * H + h1,
+                  row == MOL_ID || row == MATE || row == SECOND_BEST ? -1 : 0);
+    std::fill(F + MOL_CONF * H + h0, F + MOL_CONF * H + h1, conf0);
+    std::fill(F + SUM_MOVE * H + h0, F + SUM_MOVE * H + h1, 1.0);
+    for (int row : {MOL_DIFF, SB_SCORE, SB_MOL_CONF, MD_SCORE})
+        std::fill(F + row * H + h0, F + row * H + h1, 0.0);
+    for (size_t a = 0; a < A; ++a) {
+        const int64_t h = s.kept[a];
+        I[ACTIVE * H + h] = s.o_active[a];
+        I[PROPER * H + h] = s.o_proper[a];
+        I[BWA_PICK * H + h] = s.o_pick[a];
+        I[MAPQ * H + h] = s.o_mapq[a];
+        I[MOL_ID * H + h] = s.o_molid[a];
+        I[ACTIVE_MOL * H + h] = s.o_amol[a];
+        I[MATE * H + h] = s.o_mate[a] >= 0 ? s.kept[s.o_mate[a]] : -1;
+        I[SECOND_BEST * H + h] = s.o_sb[a] >= 0 ? s.kept[s.o_sb[a]] : -1;
+        I[SB_PROPER * H + h] = s.o_sbp[a];
+        I[SB_MOL_READS * H + h] = s.o_sbr[a];
+        I[COPIES * H + h] = s.o_cp[a];
+        I[COPIES_IN * H + h] = s.o_cpi[a];
+        I[COPIES_OUT * H + h] = s.o_cpo[a];
+        I[UNIQ_MOLS * H + h] = s.o_uniq[a];
+        I[READS_IN_MOL * H + h] = s.o_rim[a];
+        F[MOL_CONF * H + h] = s.o_mconf[a];
+        F[MOL_DIFF * H + h] = s.o_mdiff[a];
+        F[SUM_MOVE * H + h] = s.o_sum[a];
+        F[SB_SCORE * H + h] = s.o_sbs[a];
+        F[SB_MOL_CONF * H + h] = s.o_sbc[a];
+        F[MD_SCORE * H + h] = s.o_mds[a];
+    }
+}
+
+}  // namespace
+
+// RFA's host stage for a superbatch: every hit of every barcode walked
+// against its reference window and filtered, then each barcode's tail.
+// Barcodes are independent and spread over n_threads.  The mismatch loci
+// come back compacted, hit h's at [loc_off[h], loc_off[h + 1]); rc[b] is
+// the tail's return code (-2: an active alignment with an inactive mate).
+extern "C" int rfa_superbatch(
+    int64_t n_bc, const int64_t* bc_read_off, const int64_t* read_hit_off,
+    const uint8_t* run_rfa, const uint8_t* codes, const int64_t* code_off,
+    const uint64_t* jitter, int64_t H, const int64_t* ch_pos, const int64_t* ch_aend,
+    const int32_t* ch_score, const int32_t* hit_id, const int32_t* mate_id,
+    const int32_t* cig, const int64_t* cig_off, const int64_t* nm, const int64_t* rid,
+    const uint8_t* is_rev, const uint8_t* fwd, const uint8_t* pac, int64_t l_pac,
+    const int64_t* contig_off, const int64_t* contig_len, int64_t n_contigs,
+    const int64_t* cen_start, const int64_t* cen_end, double improper, double ref_len,
+    int32_t delta, int32_t temp_steps, int32_t anneal_factor, const int64_t* loc_cap,
+    int64_t* coords, int32_t* i32, double* f64, int64_t* locs, int32_t* rlocs,
+    int64_t* loc_off, int32_t* n_mol, int32_t* rc, int32_t n_threads) {
+    const Batch B{bc_read_off, read_hit_off, run_rfa, codes, code_off, jitter, ch_pos,
+                  ch_aend, ch_score, hit_id, mate_id, cig, cig_off, nm, rid, is_rev, fwd,
+                  pac, l_pac, contig_off, contig_len, n_contigs, cen_start, cen_end,
+                  improper, ref_len, delta, temp_steps, anneal_factor, H, loc_cap,
+                  coords, i32, f64, locs, rlocs, n_mol, rc};
+    std::atomic<int64_t> next(0);
+    auto work = [&]() {
+        Scratch s;
+        for (int64_t b; (b = next.fetch_add(1)) < n_bc;) run_barcode(B, b, s);
+    };
+    int64_t nt = std::min<int64_t>(std::min<int64_t>(n_threads, 16), n_bc);
+    if (H < 256) nt = 1;
+    if (nt <= 1) {
+        work();
+    } else {
+        vector<std::thread> threads;
+        for (int64_t t = 0; t < nt; ++t) threads.emplace_back(work);
+        for (auto& th : threads) th.join();
+    }
+    loc_off[0] = 0;
+    for (int64_t h = 0; h < H; ++h) {
+        const int64_t n = i32[N_LOCS * H + h], from = loc_cap[h], to = loc_off[h];
+        if (to != from && n > 0) {
+            std::memmove(locs + to, locs + from, (size_t)n * sizeof(int64_t));
+            std::memmove(rlocs + to, rlocs + from, (size_t)n * sizeof(int32_t));
+        }
+        loc_off[h + 1] = to + n;
     }
     return 0;
 }

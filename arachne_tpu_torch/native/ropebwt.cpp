@@ -25,7 +25,7 @@
 #include <cstring>
 #include <vector>
 
-#define ARACHNE_NATIVE_ABI 9
+#define ARACHNE_NATIVE_ABI 10
 
 extern "C" int64_t arachne_native_abi() { return ARACHNE_NATIVE_ABI; }
 

@@ -9,7 +9,7 @@ mate rescue (ops.sw_local, K2) and wave-batched CIGAR finalization
 is identical to the oracle engine: every sequential decision (rescue skip
 windows, dedup after each rescue, reg2aln's w2-doubling loop) is replayed
 on the host with the device results in hand.  It plugs into the RFA
-workflow through ``align_pairs`` / ``reg2aln_batch``.
+workflow through ``align_pairs`` / ``reg2aln_flat``.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ import torch
 
 from .. import native
 from ..align import ksw
-from ..align.cigar import MemAln
+from ..align.cigar import FlatAlns, MemAln
 from ..align.extend import AlnReg, sort_dedup_patch
 from ..align.pairing import infer_dir
 from ..align.pipeline import EasyAlignment, interpret_align
@@ -410,20 +410,60 @@ class TorchEngine:
     def reg2aln_batch(
         self, jobs: List[Tuple[np.ndarray, Optional[AlnReg]]]
     ) -> List[MemAln]:
-        """mem_reg2aln (bwamem.c:1086-1156) with the w2-doubling loop run
-        as waves of batched global alignments and every per-hit step in
+        """mem_reg2aln (bwamem.c:1086-1156) for every job, as the scalar
+        ``align/cigar.reg2aln`` gives its records."""
+        mapped = self._mapped(jobs)
+        if not mapped:
+            return [MemAln(flag=0x4) for _ in jobs]
+        cols, mapq, secondary, finished = self._reg2aln([jobs[k] for k in mapped])
+        out_cig, cig_off, md, md_off, nm, pos, rid, is_rev = finished
+        pairs = list(zip(out_cig[:, 0].tolist(), out_cig[:, 1].tolist()))
+        offs = cig_off.tolist()
+        cigars = [pairs[a:b] for a, b in zip(offs, offs[1:])]
+        md = md.decode("ascii")
+        offs = md_off.tolist()
+        mds = [md[a:b] for a, b in zip(offs, offs[1:])]
+        sub = list(map(max, cols[8], cols[9]))
+        flags = np.where(secondary >= 0, 0x100, 0).tolist()
+        done = list(map(
+            MemAln, pos.tolist(), rid.tolist(), flags, is_rev.tolist(), cols[13],
+            mapq.tolist(), nm.tolist(), cigars, mds, cols[7], sub, cols[14],
+        ))
+        if len(mapped) == len(jobs):
+            return done
+        out: List[Optional[MemAln]] = [None] * len(jobs)
+        for k, a in zip(mapped, done):
+            out[k] = a
+        return [a if a is not None else MemAln(flag=0x4) for a in out]
+
+    def reg2aln_flat(self, jobs: List[Tuple[np.ndarray, Optional[AlnReg]]]) -> FlatAlns:
+        """``reg2aln_batch``'s CIGAR, NM, contig and strand of every job as
+        the flat arrays the native stage leaves them in: no record is built
+        (the RFA stage reads these, rfa/batch.py)."""
+        mapped = self._mapped(jobs)
+        if not mapped:
+            return FlatAlns.of([MemAln(flag=0x4) for _ in jobs])
+        finished = self._reg2aln([jobs[k] for k in mapped])[3]
+        out_cig, cig_off, _, _, nm, _, rid, is_rev = finished
+        return FlatAlns(out_cig, cig_off, nm, rid, is_rev).spread(np.asarray(mapped), len(jobs))
+
+    @staticmethod
+    def _mapped(jobs) -> List[int]:
+        return [k for k, (_, ar) in enumerate(jobs)
+                if ar is not None and ar.rb >= 0 and ar.re >= 0]
+
+    def _reg2aln(self, jobs):
+        """mem_reg2aln over mapped jobs, with the w2-doubling loop run as
+        waves of batched global alignments and every per-hit step in
         native/cigarbatch.cpp: one call sets up mapq and the bands, one
         fetches and orients every window, each wave's DP problems go
         through ``BatchGlobal`` as flat results, and one call writes NM/MD,
         the squeeze, the clips and the coordinates.  Python keeps the
-        waves' control, over arrays."""
+        waves' control, over arrays.  Returns the regions' columns, mapq,
+        ``secondary`` and what ``cigar_finish_native`` returns."""
         idx, opt = self.idx, self.opt
-        mapped = [k for k, (_, ar) in enumerate(jobs)
-                  if ar is not None and ar.rb >= 0 and ar.re >= 0]
-        if not mapped:
-            return [MemAln(flag=0x4) for _ in jobs]
-        regs = [jobs[k][1] for k in mapped]
-        queries = [jobs[k][0] for k in mapped]
+        regs = [ar for _, ar in jobs]
+        queries = [q for q, _ in jobs]
         m = len(regs)
         cols = list(zip(*map(_REG_FIELDS, regs)))
         reg = np.array(cols[:12], np.int64).T.copy()
@@ -481,25 +521,8 @@ class TorchEngine:
             active = cont[(iters[cont] < 3) & (score[cont] < truesc[cont] - opt.a)]
 
         cig_all = np.concatenate(cig_parts) if cig_parts else np.zeros((0, 2), np.int32)
-        out_cig, cig_off, md, md_off, nm, pos, rid, is_rev = native.cigar_finish_native(
+        finished = native.cigar_finish_native(
             kind, cig_all, cig_start, cig_n, prep, query_off, qb, qe, rb, re, idx.l_pac,
             idx._offsets,
         )
-        pairs = list(zip(out_cig[:, 0].tolist(), out_cig[:, 1].tolist()))
-        offs = cig_off.tolist()
-        cigars = [pairs[a:b] for a, b in zip(offs, offs[1:])]
-        md = md.decode("ascii")
-        offs = md_off.tolist()
-        mds = [md[a:b] for a, b in zip(offs, offs[1:])]
-        sub = list(map(max, cols[8], cols[9]))
-        flags = np.where(secondary >= 0, 0x100, 0).tolist()
-        done = list(map(
-            MemAln, pos.tolist(), rid.tolist(), flags, is_rev.tolist(), cols[13],
-            mapq.tolist(), nm.tolist(), cigars, mds, cols[7], sub, cols[14],
-        ))
-        if len(mapped) == len(jobs):
-            return done
-        out: List[Optional[MemAln]] = [None] * len(jobs)
-        for k, a in zip(mapped, done):
-            out[k] = a
-        return [a if a is not None else MemAln(flag=0x4) for a in out]
+        return cols, mapq, secondary, finished

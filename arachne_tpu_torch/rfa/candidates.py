@@ -18,7 +18,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from ..align.cigar import reg2aln
+from ..align.cigar import MemAln, reg2aln
 from ..align.pipeline import EasyAlignment, align_pair_with_rescue, seq_to_codes
 from ..config import ArachneConfig
 from ..index.fmindex import FMIndex
@@ -143,131 +143,29 @@ def get_chains(
     return out, barcode
 
 
-_CODE_TO_BASE = np.frombuffer(b"ACGTN", dtype=np.uint8)
-
-
-def _native_cigar_walk(idx, cfg, barcode_chains, mem_cache, mat):
-    """Batch the per-hit CIGAR walk of GetAlignments through
-    native/cigarwalk.cpp: one vectorized reference-window fetch
-    (fetch_seq_batch) + one GIL-released C++ call for the whole barcode
-    set, replacing per-hit get_contig_seq/np.flatnonzero loops (the
-    largest Python host-tail term at genome scale).  Returns
-    {id(ch): (matches, mismatches, indels, indel_len, sc, sc_len,
-    mismatch_locs, mismatch_read_locs)} or None to fall back to the
-    in-loop Python walk (no toolchain, or no mem cache to reuse)."""
-    import os
-
-    if mem_cache is None:
-        return None  # oracle path: resolving reg2aln twice would be slower
-    if os.environ.get("ARACHNE_NATIVE_CIGARWALK", "1") == "0":
-        return None  # A/B + byte-identity testing hook
-    from ..native import cigar_walk_available, cigar_walk_batch_native, native_threads
-
-    if not cigar_walk_available():
-        return None
-    hits = []
-    for lst in barcode_chains:
-        for ch in lst:
-            if ch.easy is not None:
-                hits.append(ch)
-    if not hits:
-        return {}
-    n = len(hits)
-    cig_parts = []
-    cig_off = np.zeros(n + 1, np.int64)
-    read_off = np.zeros(n + 1, np.int64)
-    rev_arr = np.zeros(n, np.uint8)
-    rs_arr = np.zeros(n, np.int64)
-    re_arr = np.zeros(n, np.int64)
-    ed_arr = np.zeros(n, np.int32)
-    begs = np.zeros(n, np.int64)
-    ends = np.zeros(n, np.int64)
-    offs = idx._offsets
-    reads = []
-    mems = []
-    for j, ch in enumerate(hits):
-        mem = mem_cache[id(ch)]
-        mems.append(mem)
-        rev = mem.is_rev
-        rev_arr[j] = rev
-        if rev:
-            rs, re = ch.aend + 1, ch.pos + 1
-        else:
-            rs, re = ch.pos, ch.aend
-        rs_arr[j] = rs
-        re_arr[j] = re
-        off = offs[mem.rid] if mem.rid >= 0 else 0
-        begs[j] = rs + off
-        ends[j] = re + off
-        ed_arr[j] = mem.NM if mem.NM >= 0 else 0
-        cigar_list = mem.cigar or []
-        flat = np.empty(2 * len(cigar_list), np.int32)
-        for k, (op, ln) in enumerate(cigar_list):
-            flat[2 * k] = op
-            flat[2 * k + 1] = ln
-        cig_parts.append(flat)
-        cig_off[j + 1] = cig_off[j] + len(cigar_list)
-        codes = chain_codes(ch)
-        reads.append(codes)
-        read_off[j + 1] = read_off[j] + len(codes)
-    seqs, _, _, _ = idx.fetch_seq_batch(begs, (begs + ends) >> 1, ends)
-    ref_parts = []
-    ref_off = np.zeros(n + 1, np.int64)
-    for j, s in enumerate(seqs):
-        if rev_arr[j]:
-            s = (3 - s[::-1]).astype(np.uint8)
-        ref_parts.append(s)
-        ref_off[j + 1] = ref_off[j] + len(s)
-    cig = np.concatenate(cig_parts) if cig_parts else np.empty(0, np.int32)
-    ref = np.concatenate(ref_parts) if ref_parts else np.empty(0, np.uint8)
-    read = np.concatenate(reads) if reads else np.empty(0, np.uint8)
-    out = cigar_walk_batch_native(
-        np.ascontiguousarray(cig), cig_off,
-        np.ascontiguousarray(ref), ref_off,
-        np.ascontiguousarray(read), read_off,
-        rev_arr, rs_arr, re_arr, ed_arr,
-        n_threads=native_threads(),
-    )
-    if out is None:
-        return None
-    counters, locs, rlocs, nm = out
-    walk = {}
-    for j, ch in enumerate(hits):
-        base = int(read_off[j])
-        k = int(nm[j])
-        walk[id(ch)] = (
-            int(counters[j, 0]), int(counters[j, 1]), int(counters[j, 2]),
-            int(counters[j, 3]), int(counters[j, 4]), int(counters[j, 5]),
-            locs[base : base + k].tolist(),
-            rlocs[base : base + k].tolist(),
-        )
-    return walk
-
-
 def get_alignments(
     idx: FMIndex,
     cfg: ArachneConfig,
     barcode_chains: List[List[ChainedHit]],
     engine=None,
-    mem_cache=None,
+    mems: Optional[List[MemAln]] = None,
 ) -> Tuple[List[List[Alignment]], List[List[Alignment]]]:
-    """GetAlignments (aligner.go:1484-1631); delta = best-17 filter."""
+    """GetAlignments (aligner.go:1484-1631); delta = best-17 filter.  The
+    reg2aln records of the hits with a region come from ``mems`` (in chain
+    order), else from ``engine.reg2aln_batch``, else from the scalar
+    ``reg2aln``.  The reference rfa/batch.py is held to."""
     delta = cfg.rfa.alignment_score_delta
     improper = cfg.rfa.improper_pair_penalty
     mat = cfg.mem.scoring_matrix()
     n = len(barcode_chains)
     filtered: List[List[Alignment]] = [[] for _ in range(n)]
     full: List[List[Alignment]] = [[] for _ in range(n)]
-    if mem_cache is None and engine is not None:
-        jobs = []
-        keys = []
-        for i in range(n):
-            for ch in barcode_chains[i]:
-                if ch.easy is not None:
-                    jobs.append((chain_codes(ch), ch.easy.reg))
-                    keys.append(id(ch))
-        mem_cache = dict(zip(keys, engine.reg2aln_batch(jobs)))
-    walk = _native_cigar_walk(idx, cfg, barcode_chains, mem_cache, mat)
+    if mems is None and engine is not None:
+        mems = engine.reg2aln_batch(
+            [(chain_codes(ch), ch.easy.reg)
+             for lst in barcode_chains for ch in lst if ch.easy is not None]
+        )
+    mem_iter = iter(mems) if mems is not None else None
     for i in range(n):
         best_score = 0
         for ch in barcode_chains[i]:
@@ -277,8 +175,8 @@ def get_alignments(
             codes = None
             if ch.easy is not None:
                 codes = chain_codes(ch)
-                if mem_cache is not None:
-                    mem = mem_cache[id(ch)]
+                if mem_iter is not None:
+                    mem = next(mem_iter)
                 else:
                     mem = reg2aln(idx, cfg.mem, codes, ch.easy.reg, mat)
                 chrom = idx.packed.anns[mem.rid].name if mem.rid >= 0 else ""
@@ -291,73 +189,66 @@ def get_alignments(
             else:
                 chrom, rev, flat_cigar, edit_distance = "", False, [], 0
 
-            if walk is not None and id(ch) in walk:
-                (
-                    matches, mismatches, indels, indel_length,
-                    soft_clipping, soft_clipping_length,
-                    mismatch_locs, mismatch_read_locs,
-                ) = walk[id(ch)]
+            matches = 0
+            indels = 0
+            indel_length = 0
+            soft_clipping = 0
+            soft_clipping_length = 0
+            ref_start, ref_end = ch.pos, ch.aend
+            if rev:
+                ref_start = ch.aend + 1
+                ref_end = ch.pos + 1
+            mismatch_locs: List[int] = []
+            mismatch_read_locs: List[int] = []
+            if ch.easy is not None:
+                ref_seq = idx.get_contig_seq(chrom, ref_start, ref_end, rev)
             else:
-                matches = 0
-                indels = 0
-                indel_length = 0
-                soft_clipping = 0
-                soft_clipping_length = 0
-                ref_start, ref_end = ch.pos, ch.aend
-                if rev:
-                    ref_start = ch.aend + 1
-                    ref_end = ch.pos + 1
-                mismatch_locs: List[int] = []
-                mismatch_read_locs: List[int] = []
-                if ch.easy is not None:
-                    ref_seq = idx.get_contig_seq(chrom, ref_start, ref_end, rev)
-                else:
-                    ref_seq = np.empty(0, dtype=np.uint8)
-                if codes is not None:
-                    read_seq = codes
-                else:
-                    read_seq = chain_codes(ch) if ch.read else np.empty(0, dtype=np.uint8)
-                ref_off = 0
-                read_off = 0
-                # walk the CIGAR; reversed hits walk it back-to-front so
-                # offsets track the *original* read orientation
-                # (aligner.go:1524-1564)
-                pairs = list(range(0, len(flat_cigar), 2))
-                if rev:
-                    pairs = pairs[::-1]
-                for k in pairs:
-                    op, ln = flat_cigar[k], flat_cigar[k + 1]
-                    if op == 0:
-                        matches += ln
-                        limit = min(ln, len(ref_seq) - ref_off, len(read_seq) - read_off)
-                        seg_r = ref_seq[ref_off : ref_off + max(limit, 0)]
-                        seg_q = read_seq[read_off : read_off + max(limit, 0)]
-                        mism = np.flatnonzero(seg_r != seg_q)
-                        for m in mism:
-                            m = int(m)
-                            if rev:
-                                mismatch_locs.append(int(ref_end) - (ref_off + m))
-                            else:
-                                mismatch_locs.append(ref_off + int(ref_start) + m)
-                            mismatch_read_locs.append(read_off + m)
-                        ref_off += ln
-                        read_off += ln
-                    elif op == 1:
-                        indels += 1
-                        indel_length += ln
-                        read_off += ln
-                    elif op == 2:
-                        indels += 1
-                        indel_length += ln
-                        ref_off += ln
-                    elif op == 3:
-                        soft_clipping += 1
-                        soft_clipping_length += ln
-                        read_off += ln
-                mismatches = edit_distance - indel_length
-                matches -= mismatches
-                if mismatches < 0:
-                    mismatches = 0
+                ref_seq = np.empty(0, dtype=np.uint8)
+            if codes is not None:
+                read_seq = codes
+            else:
+                read_seq = chain_codes(ch) if ch.read else np.empty(0, dtype=np.uint8)
+            ref_off = 0
+            read_off = 0
+            # walk the CIGAR; reversed hits walk it back-to-front so
+            # offsets track the *original* read orientation
+            # (aligner.go:1524-1564)
+            pairs = list(range(0, len(flat_cigar), 2))
+            if rev:
+                pairs = pairs[::-1]
+            for k in pairs:
+                op, ln = flat_cigar[k], flat_cigar[k + 1]
+                if op == 0:
+                    matches += ln
+                    limit = min(ln, len(ref_seq) - ref_off, len(read_seq) - read_off)
+                    seg_r = ref_seq[ref_off : ref_off + max(limit, 0)]
+                    seg_q = read_seq[read_off : read_off + max(limit, 0)]
+                    mism = np.flatnonzero(seg_r != seg_q)
+                    for m in mism:
+                        m = int(m)
+                        if rev:
+                            mismatch_locs.append(int(ref_end) - (ref_off + m))
+                        else:
+                            mismatch_locs.append(ref_off + int(ref_start) + m)
+                        mismatch_read_locs.append(read_off + m)
+                    ref_off += ln
+                    read_off += ln
+                elif op == 1:
+                    indels += 1
+                    indel_length += ln
+                    read_off += ln
+                elif op == 2:
+                    indels += 1
+                    indel_length += ln
+                    ref_off += ln
+                elif op == 3:
+                    soft_clipping += 1
+                    soft_clipping_length += ln
+                    read_off += ln
+            mismatches = edit_distance - indel_length
+            matches -= mismatches
+            if mismatches < 0:
+                mismatches = 0
 
             quals = ch.fastq.qual1 if ch.read1 else ch.fastq.qual2
             pos, aend = ch.pos, ch.aend

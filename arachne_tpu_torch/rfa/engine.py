@@ -12,9 +12,11 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
+from ..align.cigar import FlatAlns, reg2aln
 from ..config import ArachneConfig
 from ..index.fmindex import FMIndex
-from .candidates import FastQRecordView, get_alignments, get_chains
+from .batch import run_superbatch
+from .candidates import ChainedHit, FastQRecordView, chain_codes, get_alignments, get_chains
 from .dupmark import mark_duplicates
 from .mapq import estimate_map_qualities
 from .molecules import (
@@ -73,21 +75,80 @@ def do_rfa_for_one_barcode(
     centromeres: Optional[Dict[str, Region]] = None,
     extender=None,
 ) -> BarcodeResult:
-    """DoRFAForOneBarcode (aligner.go:440-501)."""
+    """DoRFAForOneBarcode (aligner.go:440-501): a superbatch of one
+    barcode.  With a TorchEngine as ``extender`` the batched device path,
+    else the scalar per-pair path and the scalar ``reg2aln``."""
     engine = None
     if extender is not None and hasattr(extender, "align_pairs"):
-        engine = extender  # a TpuEngine: full batched path
+        engine = extender  # a TorchEngine: full batched path
         extender = None
-    barcode_chains, barcode = get_chains(
-        idx, cfg, reads, extender=extender, engine=engine
+    chains, barcode = get_chains(idx, cfg, reads, extender=extender, engine=engine)
+    jobs = hit_jobs([chains])
+    if engine is not None:
+        alns = engine.reg2aln_flat(jobs)
+    else:
+        mat = cfg.mem.scoring_matrix()
+        alns = FlatAlns.of([reg2aln(idx, cfg.mem, q, reg, mat) for q, reg in jobs])
+    return finish_barcodes(
+        idx, cfg, [(reads, unique_barcode)], [(chains, barcode)], alns, centromeres
+    )[0]
+
+
+def hit_jobs(chain_sets: List[List[List[ChainedHit]]]):
+    """(read codes, region) of every hit with a region, in chain order
+    across the barcodes: reg2aln's jobs."""
+    return [(chain_codes(ch), ch.easy.reg)
+            for chains in chain_sets for lst in chains for ch in lst if ch.easy is not None]
+
+
+def finish_barcodes(
+    idx: FMIndex,
+    cfg: ArachneConfig,
+    barcode_sets: List[Tuple[List[FastQRecordView], bool]],
+    chain_sets: List[Tuple[List[List[ChainedHit]], str]],
+    alns: FlatAlns,
+    centromeres: Optional[Dict[str, Region]] = None,
+    native_stage: Optional[str] = None,
+) -> List[BarcodeResult]:
+    """GetAlignments and the tail of DoRFAForOneBarcode for many barcodes:
+    the candidates, tags, molecules, optimizer and MAPQ in one native call
+    (rfa/batch.py, timed as the TIMERS stage ``native_stage``), then each
+    barcode's ``_finish_barcode``.  ``alns`` is reg2aln's record of each
+    of ``hit_jobs``' jobs."""
+    centromeres = centromeres or {}
+    run_rfa = [worth_running_rfa(reads, unique, cfg) for reads, unique in barcode_sets]
+    finished = run_superbatch(
+        idx, cfg, [reads for reads, _ in barcode_sets], [chains for chains, _ in chain_sets],
+        alns, run_rfa, centromeres, native_stage,
     )
-    alignments, stashed = get_alignments(idx, cfg, barcode_chains, engine=engine)
-    return _finish_barcode(
-        idx, cfg, reads, unique_barcode, alignments, stashed, barcode, centromeres
-    )
+    return [
+        _finish_barcode(cfg, reads, unique, barcode, rfa, done, centromeres)
+        for (reads, unique), (_, barcode), rfa, done in zip(
+            barcode_sets, chain_sets, run_rfa, finished)
+    ]
 
 
 def _finish_barcode(
+    cfg: ArachneConfig,
+    reads: List[FastQRecordView],
+    unique_barcode: bool,
+    barcode: str,
+    ran_rfa: bool,
+    finished,
+    centromeres: Dict[str, Region],
+) -> BarcodeResult:
+    """Duplicate marking and split reads on one barcode of
+    ``run_superbatch``'s output, and its result for the writer."""
+    alignments, split_reads, n_molecules = finished
+    mark_duplicates(alignments)
+    check_split_reads(split_reads, centromeres, cfg.rfa.improper_pair_penalty)
+    return BarcodeResult(
+        alignments=alignments, reads=reads, attach_bx=True if ran_rfa else unique_barcode,
+        barcode=barcode, ran_rfa=ran_rfa, n_molecules=n_molecules,
+    )
+
+
+def finish_barcode_python(
     idx: FMIndex,
     cfg: ArachneConfig,
     reads: List[FastQRecordView],
@@ -97,29 +158,12 @@ def _finish_barcode(
     barcode: str,
     centromeres: Optional[Dict[str, Region]] = None,
 ) -> BarcodeResult:
-    """The RFA/MAPQ/dup/split tail of DoRFAForOneBarcode."""
+    """The RFA/MAPQ/dup/split tail of DoRFAForOneBarcode in Python, over
+    ``get_alignments``' lists: the reference ``finish_barcodes`` is held to
+    (tests/test_torch_rfa_native.py)."""
     centromeres = centromeres or {}
     improper = cfg.rfa.improper_pair_penalty
     run_rfa = worth_running_rfa(reads, unique_barcode, cfg)
-
-    # native C++ tail (tag -> molecules -> optimize -> mapq) when available:
-    # field-identical to the Python tail below (tests/test_rfa_native_tail.py
-    # + e2e byte-identity); the Python implementation stays authoritative
-    from .native_tail import native_rfa_enabled, run_native_tail
-
-    if native_rfa_enabled():
-        n_mol = run_native_tail(alignments, run_rfa, cfg, centromeres)
-        if n_mol is not None:
-            mark_duplicates(alignments)
-            check_split_reads(stashed, centromeres, improper)
-            return BarcodeResult(
-                alignments=alignments,
-                reads=reads,
-                attach_bx=unique_barcode if not run_rfa else True,
-                barcode=barcode,
-                ran_rfa=run_rfa,
-                n_molecules=n_mol,
-            )
 
     positions = tag_best_alignments(alignments, improper)
 
@@ -188,7 +232,6 @@ def process_barcodes(
     """
     from ..align.pipeline import seq_to_codes
     from ..runtime.timers import TIMERS
-    from .candidates import chain_codes
 
     with TIMERS.span("superbatch", sets=len(barcode_sets),
                      pairs=sum(len(reads) for reads, _ in barcode_sets),
@@ -209,28 +252,13 @@ def process_barcodes(
                 chain_sets.append((chains, bc))
 
         # one reg2aln batch across every hit of every barcode
-        jobs = []
-        keys = []
-        for chains, _ in chain_sets:
-            for lst in chains:
-                for ch in lst:
-                    if ch.easy is not None:
-                        jobs.append((chain_codes(ch), ch.easy.reg))
-                        keys.append(id(ch))
+        jobs = hit_jobs([chains for chains, _ in chain_sets])
         with TIMERS.stage("cigar"):
-            mem_cache = dict(zip(keys, engine.reg2aln_batch(jobs))) if jobs else {}
+            alns = engine.reg2aln_flat(jobs)
 
-        results = []
         with TIMERS.stage("rfa.host"):
-            for (reads, unique), (chains, bc) in zip(barcode_sets, chain_sets):
-                alignments, stashed = get_alignments(
-                    idx, cfg, chains, mem_cache=mem_cache
-                )
-                TIMERS.add_to("superbatch", candidates=sum(map(len, alignments)))
-                results.append(
-                    _finish_barcode(
-                        idx, cfg, reads, unique, alignments, stashed, bc, centromeres
-                    )
-                )
-        TIMERS.add_to("superbatch", hits=len(jobs))
+            results = finish_barcodes(idx, cfg, barcode_sets, chain_sets, alns, centromeres,
+                                      native_stage="rfa.native")
+        TIMERS.add_to("superbatch", hits=len(jobs),
+                      candidates=sum(len(a) for r in results for a in r.alignments))
         return results

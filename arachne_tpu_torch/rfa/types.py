@@ -64,7 +64,7 @@ class OrderedMap:
         return key in self.index
 
 
-@dataclass
+@dataclass(slots=True)
 class MapQData:
     """MapQData (aligner.go:147-160)."""
 
@@ -82,14 +82,15 @@ class MapQData:
     second_best_molecule_confidence: float = 0.0
 
 
-@dataclass
+@dataclass(slots=True)
 class Alignment:
     """Alignment (aligner.go:65-114): one candidate placement of one read.
 
     ``pos``/``aend`` are contig-relative; for reversed hits they are already
     swapped to leftmost/rightmost+1 (GetAlignments, aligner.go:1577-1582).
     ``cigar`` is the flat [op, len, ...] list in bridge encoding
-    (M=0, I=1, D=2, S=3)."""
+    (M=0, I=1, D=2, S=3).  Slotted, as MapQData: rfa/batch.py builds
+    thousands a superbatch, and slots halve the cost of each."""
 
     id: int = 0
     read1: bool = True
